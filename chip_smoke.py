@@ -16,18 +16,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
            its batch_size=1 replay; counts act_clip_count launches
   execute  the winner's pruned weights through block_sparse_matmul
   timing   the execute step's products again, timed: kernel, plain, bound,
-           dense library call
+           dense library call, and each product's work plan (tile, splits,
+           blocks)
+  profile  the device's busy share over one batched round of the search
+           (8 proposals), from a torch.profiler trace, or "not measured";
+           and the device operations of one main-path call of each wrapper
 
-Times: ``ms`` is the kernel alone on the device (``act_clip_count`` /
-``block_sparse_matmul`` called on operands already padded, inside a CUDA graph
-that is then replayed, so the host's cost of making a call is not in the
-number: the main path pays that cost too, see ``wrapper_ms``), ``library_ms``
-one dense ``x @ w`` timed the same way, ``plain_device_ms`` the clip's plain
-version timed the same way, ``wrapper_ms`` the whole any-shape wrapper call as
-the main path makes it (padding, allocation, the launch, the sum of the
-counts; host cost included) and ``plain_ms`` the plain PyTorch version called
-the same way. ``bound_ms`` counts the unpadded operands of the function the
-main path calls: padding to tiles is the kernel's cost, not the work's.
+Times: ``ms`` is the device time of the call the main path makes
+(``ops.act_clip`` / ``SparseWeight.matmul`` on the operands the main path
+hands them, unpadded, inside a CUDA graph that is then replayed, so the host's
+cost of making a call is not in the number: the main path pays that cost too,
+see ``wrapper_ms``); it holds every device operation of the call (the
+matmul's split reduction too). ``library_ms`` is one dense
+``x @ w`` timed the same way, ``plain_device_ms`` the clip's plain version
+timed the same way, ``wrapper_ms`` the same call eagerly with its host cost,
+and ``plain_ms`` the plain PyTorch version called the same way. ``bound_ms``
+counts the unpadded operands of the function the main path calls: padding to
+tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
 ``execute``. The card's name and power limit and then one line listing every
@@ -45,10 +50,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12               # float32 outside the tensor cores
-BF16_FLOPS = 989e12              # dense bf16 tensor-core rate
-
 RESNET18_IMG_RES = 224
 CALIB_BATCH = 8
 MAX_M = 25088
@@ -61,103 +62,6 @@ def emit(phase: str, **kw) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, *, warmup: int = 3, min_reps: int = 5, budget_ms: float = 60.0
-            ) -> float:
-    """Mean time of ``fn()`` on the card, by CUDA events around a run of
-    launches (inputs stay where the previous launch left them: warm L2, as
-    the caller that has just produced an activation finds it)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    fn()
-    b.record()
-    torch.cuda.synchronize()
-    one = max(a.elapsed_time(b), 1e-3)
-    reps = int(max(min_reps, min(200, budget_ms / one)))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, *, budget_ms: float = 40.0) -> float:
-    """Device time of one ``fn()``: a run of calls captured in one CUDA graph
-    and replayed, CUDA events around the replays. ``fn`` must allocate
-    nothing it keeps and must not synchronise (a kernel's wrapper on padded
-    operands; one ``torch.matmul``). Warm L2, as in ``time_ms``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    fn()
-    b.record()
-    torch.cuda.synchronize()
-    one = max(a.elapsed_time(b), 1e-3)
-    per_graph = int(max(4, min(50, budget_ms / 4 / one)))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    replays = 4
-    a.record()
-    for _ in range(replays):
-        graph.replay()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / (replays * per_graph)
-
-
-# ------------------------------------------------------------------------- #
-# bounds: the least time the card could take for the same work
-# ------------------------------------------------------------------------- #
-def clip_bound_ms(x: torch.Tensor, n_tiles: int):
-    """Read x once, write y once, one int32 per tile; one compare per
-    element on the float32 pipes."""
-    by = 2 * x.numel() * x.element_size() + 4 * n_tiles
-    t_bytes = by / HBM_BYTES_PER_S * 1e3
-    t_ops = x.numel() / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def matmul_bound_ms(sw, M: int, elem_size: int):
-    """The least work of ``x (M, K) @ w (K, N)`` under ``sw``'s schedule, on
-    the unpadded operands: 2 * M * rows * cols flops for every scheduled tile
-    (its real rows and columns inside (K, N)), against x's columns that any
-    scheduled tile names read once, the scheduled part of w once, the float32
-    output once, and the schedule's used entries."""
-    counts = sw.counts.cpu().numpy()
-    idx = sw.indices.cpu().numpy()
-    K, N = sw.shape
-    bk, bn = sw.bk, sw.bn
-    w_elems, used_kt = 0, set()
-    for j, c in enumerate(counts):
-        cols = min(bn, N - j * bn)
-        for kt in idx[j, :c].tolist():
-            w_elems += min(bk, K - kt * bk) * cols
-            used_kt.add(kt)
-    x_cols = sum(min(bk, K - kt * bk) for kt in used_kt)
-    steps = int(counts.sum())
-    flops = 2.0 * M * w_elems
-    by = (M * x_cols * elem_size + w_elems * elem_size + M * N * 4
-          + 4 * len(counts) + 4 * steps)
-    t_ops = flops / (FP32_FLOPS if elem_size == 4 else BF16_FLOPS) * 1e3
-    t_bytes = by / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -185,21 +89,10 @@ def phase_device():
     return card
 
 
-def main_path_clip_shapes():
-    """The 21 inputs of ResNet-18's prunable layers for 8 images of 224 x 224:
-    what one stats forward hands to ``ops.act_clip``."""
-    from repro_torch.configs.paper_cnns import RESNET18
-    from repro_torch.models import cnn
-    shapes = []
-    for s in cnn.build_specs(RESNET18):
-        if s.prunable:
-            shapes.append((s.name, (CALIB_BATCH, s.in_hw, s.in_hw, s.cin)
-                           if s.kind == "conv" else (CALIB_BATCH, s.cin)))
-    return shapes
-
-
 def phase_kernels_clip(dev):
     from repro_torch.kernels import act_clip, ops, ref
+    from repro_torch.kernels.bench_util import (clip_bound_ms, device_ms,
+                                                main_path_clip_shapes, time_ms)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(7)
     max_err, cases = 0.0, 0
@@ -222,11 +115,27 @@ def phase_kernels_clip(dev):
                 max_err = max(max_err, float(
                     (y.float() - y_ref.float()).abs().max()))
                 cases += 1
+    # the kernel's own outputs on ragged inputs: per-tile counts with the
+    # tiles' padding as zeros, the total without it
+    for shape in [(1, 9), (100, 333), (2, 56, 56, 64), (3, 1000003)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen).to(dtype).to(dev)
+            y, cnt, total = act_clip.act_clip_count_flat(x, 0.3)
+            y_ref, cnt_ref, total_ref = act_clip.act_clip_count_flat(
+                x.cpu(), 0.3)
+            cols, bm, tiles = act_clip.flat_tiles(x.numel())
+            padding = tiles * bm * cols - x.numel()
+            if not torch.equal(_bits(y.cpu()), _bits(y_ref)) or \
+                    not torch.equal(cnt.cpu(), cnt_ref) or \
+                    int(total) != int(total_ref) or \
+                    int(total) != int(cnt.sum()) - padding:
+                fail(f"act_clip_count_flat != plain at {shape} {dtype}")
+            cases += 1
     rows, tot = [], {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
                      "plain_device_ms": 0.0, "bound_ms": 0.0}
     tau = 0.3
     tau_dev = torch.tensor(tau, dtype=torch.float32, device=dev)
-    for name, shape in main_path_clip_shapes():
+    for name, shape in main_path_clip_shapes(CALIB_BATCH):
         # a post-ReLU-like activation: about half zeros already
         x = torch.relu(torch.randn(shape, generator=gen)).to(dev)
         y, cnt = ops.act_clip(x, tau)
@@ -234,21 +143,16 @@ def phase_kernels_clip(dev):
         if not torch.equal(_bits(y), _bits(y_ref)) or int(cnt) != int(cnt_ref):
             fail(f"act_clip_count != plain at main-path input {name}")
         cases += 1
-        # the kernel alone, on the 2-D operand ops.act_clip hands it (every
-        # one of these inputs is a whole number of 256-wide rows)
-        x2 = x.reshape(-1, 256)
-        bm = min(256, x2.shape[0])
-        x2 = torch.nn.functional.pad(x2, (0, 0, 0, (-x2.shape[0]) % bm))
-        blocks = x2.shape[0] // bm
-        bound, by = clip_bound_ms(x, blocks)
-        ms = device_ms(lambda: act_clip.act_clip_count(x2, tau, bm=bm,
-                                                       bn=256))
+        # the call the main path makes, on x as it lies
+        tiles = act_clip.flat_tiles(x.numel())[2]
+        bound, by = clip_bound_ms(x, tiles)
+        ms = device_ms(lambda: ops.act_clip(x, tau))
         wrapper = time_ms(lambda: ops.act_clip(x, tau))
         plain = time_ms(lambda: ref.act_clip_count_ref(x, tau))
         # the plain version's device time (tau already on the card, so that
         # the graph holds no copy from the host)
         plain_dev = device_ms(lambda: ref.act_clip_count_ref(x, tau_dev))
-        rows.append({"layer": name, "shape": list(shape), "blocks": blocks,
+        rows.append({"layer": name, "shape": list(shape), "tiles": tiles,
                      "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
                      "plain_device_ms": plain_dev,
                      "bound_ms": bound, "bound_by": by})
@@ -274,35 +178,25 @@ def phase_kernels_clip(dev):
             "shapes": rows}
 
 
-def _tile_sparse(K, N, density, gen, lecun=True):
-    """A (K, N) weight with about ``density`` of its 128 x 128 tiles kept;
-    ``lecun`` scales it 1/sqrt(K) as an initialised layer has it, so that
-    outputs stay O(1) at the search's large K."""
-    w = torch.randn((K, N), generator=gen)
-    if lecun:
-        w = w / np.sqrt(K)
-    Kt, Nt = -(-K // 128), -(-N // 128)
-    keep = torch.rand((Kt, Nt), generator=gen) < density
-    if density >= 1.0:
-        keep[:] = True
-    m = keep.repeat_interleave(128, 0).repeat_interleave(128, 1)[:K, :N]
-    return w * m
+def matmul_device_ms(sw, x, budget_ms: float = 60.0) -> float:
+    """block_sparse_matmul's device time as the main path calls it:
+    ``SparseWeight.matmul`` on the unpadded x (one launch, or two with the
+    split reduction)."""
+    from repro_torch.kernels.bench_util import device_ms
+    return device_ms(lambda: sw.matmul(x), budget_ms=budget_ms)
 
 
-def kernel_alone_ms(sw, x, budget_ms: float = 60.0) -> float:
-    """block_sparse_matmul's kernel alone: called on the padded operands
-    ``SparseWeight.matmul`` hands it."""
-    from repro_torch.kernels import block_sparse_matmul as bsm
-    from repro_torch.kernels.ops import _pad_to
-    xp = _pad_to(x, 128, sw.bk).contiguous()
-    return device_ms(lambda: bsm.block_sparse_matmul(
-        xp, sw.w_padded, sw.counts, sw.indices, bk=sw.bk, bn=sw.bn),
-        budget_ms=budget_ms)
+def plan_of(sw, M: int) -> dict:
+    p = sw.plan(M).plan
+    return {"tile": list(p.tile), "max_splits": p.max_splits,
+            "blocks": p.blocks, "target": p.target}
 
 
 def phase_kernels_matmul(dev):
     from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bench_util import (device_ms, matmul_bound_ms,
+                                                tile_sparse_weight, time_ms)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(11)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -317,7 +211,7 @@ def phase_kernels_matmul(dev):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-1)):
             x = torch.randn((M, K), generator=gen).to(dtype).to(dev)
             # unit-normal weights at the reference tests' shapes, as there
-            w = _tile_sparse(K, N, 0.6, gen,
+            w = tile_sparse_weight(K, N, 0.6, gen,
                              lecun=(M, K, N) not in test_shapes)
             w = w.to(dtype).to(dev)
             sw = ops.SparseWeight(w)
@@ -345,13 +239,22 @@ def phase_kernels_matmul(dev):
     if float(out.abs().max()) != 0.0:
         fail("block_sparse_matmul: an empty column is not zero")
     cases += 2
+    # a split-K product gives bit-equal outputs on two calls
+    x = torch.randn((392, 4608), generator=gen).to(dev)
+    sw = ops.SparseWeight(tile_sparse_weight(4608, 512, 0.8, gen).to(dev))
+    if sw.plan(392).plan.max_splits < 2:
+        fail("the (392, 4608, 512) plan does not split K")
+    a, b = sw.matmul(x), sw.matmul(x)
+    if not torch.equal(_bits(a), _bits(b)):
+        fail("block_sparse_matmul: two calls of a split-K product differ")
+    cases += 1
     # tile densities 1.0 / 0.75 / 0.5 / 0.25 at one of the search's shapes,
     # beside the dense library product x @ (w * mask)
     sweep = []
     M, K, N = 6272, 2304, 256
     x = torch.randn((M, K), generator=gen).to(dev)
     for density in (1.0, 0.75, 0.5, 0.25):
-        w = _tile_sparse(K, N, density, gen).to(dev)
+        w = tile_sparse_weight(K, N, density, gen).to(dev)
         sw = ops.SparseWeight(w)
         wm = sw.w_padded[:K, :N].contiguous()
         out = sw.matmul(x)
@@ -362,12 +265,27 @@ def phase_kernels_matmul(dev):
             "M": M, "K": K, "N": N, "target_density": density,
             "tile_density": sw.tile_density, "steps": sw.steps,
             "dense_steps": sw.dense_steps,
-            "ms": kernel_alone_ms(sw, x),
+            "ms": matmul_device_ms(sw, x),
             "wrapper_ms": time_ms(lambda: sw.matmul(x)),
             "plain_ms": time_ms(lambda: ref.block_sparse_matmul_ref(
                 x, w, sw.mask, 128, 128)),
             "library_ms": device_ms(lambda: torch.matmul(x, wm)),
-            "bound_ms": bound, "bound_by": by})
+            "bound_ms": bound, "bound_by": by, "plan": plan_of(sw, M)})
+    # the same dense product in bf16 (inputs widened, f32 accumulation)
+    xb = x.to(torch.bfloat16)
+    w = tile_sparse_weight(K, N, 1.0, gen).to(dev).to(torch.bfloat16)
+    sw = ops.SparseWeight(w)
+    wm = sw.w_padded[:K, :N].contiguous()
+    want = ref.block_sparse_matmul_ref(xb, w, sw.mask, 128, 128)
+    if not torch.allclose(sw.matmul(xb), want, atol=2e-1, rtol=2e-1):
+        fail("block_sparse_matmul != plain at the bf16 dense product")
+    bound, by = matmul_bound_ms(sw, M, 2)
+    sweep.append({
+        "M": M, "K": K, "N": N, "dtype": "bfloat16", "target_density": 1.0,
+        "tile_density": sw.tile_density, "steps": sw.steps,
+        "dense_steps": sw.dense_steps, "ms": matmul_device_ms(sw, xb),
+        "library_ms": device_ms(lambda: torch.matmul(xb, wm)),
+        "bound_ms": bound, "bound_by": by, "plan": plan_of(sw, M)})
     return {"name": "block_sparse_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
             "replaces": "src/repro/kernels/block_sparse_matmul.py:146",
@@ -455,13 +373,15 @@ def phase_execute(payload):
 def phase_timing(rows):
     """The execute step's products again, on the same operands, timed."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.bench_util import (device_ms, matmul_bound_ms,
+                                                time_ms)
     out, tot = [], {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
                     "library_ms": 0.0,
                     "bound_ms": 0.0, "ops_bound_ms": 0.0}
     for r in rows:
         sw, x, wp = r["operands"]
         bound, by = matmul_bound_ms(sw, x.shape[0], x.element_size())
-        ms = kernel_alone_ms(sw, x, budget_ms=30.0)
+        ms = matmul_device_ms(sw, x, budget_ms=30.0)
         wrapper = time_ms(lambda: sw.matmul(x), budget_ms=30.0)
         plain = time_ms(lambda: ref.block_sparse_matmul_ref(
             x, wp, sw.mask, sw.bk, sw.bn), budget_ms=30.0)
@@ -471,7 +391,7 @@ def phase_timing(rows):
                     "dense_steps": r["dense_steps"], "ms": ms,
                     "wrapper_ms": wrapper, "plain_ms": plain,
                     "library_ms": lib, "bound_ms": bound,
-                    "bound_by": by})
+                    "bound_by": by, "plan": plan_of(sw, x.shape[0])})
         tot["ms"] += ms
         tot["wrapper_ms"] += wrapper
         tot["plain_ms"] += plain
@@ -481,6 +401,64 @@ def phase_timing(rows):
     by = "operations" if tot["ops_bound_ms"] >= 0.5 * tot["bound_ms"] \
         else "bytes"
     return out, tot, by
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations one ``fn()`` runs (profiler trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name[:60] for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def phase_profile(payload, rows) -> dict:
+    """The device's busy share over one batched round of the search (8
+    proposals, after one warm-up round): the union of the kernels' intervals
+    in a torch.profiler trace over the host-clock window. The profiler's own
+    host cost is inside the window, so the share reads low."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.hass import hass_search
+    ev = payload["ev"]
+    L = len(ev.prunable)
+    hass_search(ev, L, iters=8, seed=2, batch_size=8)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:       # the profiler cannot trace the card
+        return {"device_busy_share": "not measured", "reason": str(e)}
+    # the round itself runs outside any try: what it raises ends the script
+    t0 = time.perf_counter()
+    try:
+        hass_search(ev, L, iters=8, seed=3, batch_size=8)
+        torch.cuda.synchronize()
+    finally:
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.stop()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans or busy <= 0:
+        return {"device_busy_share": "not measured",
+                "reason": "the trace holds no device time"}
+    # one call of each wrapper as the main path makes it: nothing but the
+    # kernel (and the matmul's split reduction) runs on the device
+    from repro_torch.kernels import ops
+    x = torch.relu(torch.randn((8, 56, 56, 64), device="cuda"))
+    sw, xm, _ = rows[9]["operands"]          # a split-K product
+    per_call = {"ops.act_clip": device_ops(lambda: ops.act_clip(x, 0.3)),
+                "SparseWeight.matmul": device_ops(lambda: sw.matmul(xm))}
+    return {"device_busy_share": busy / wall_us, "busy_ms": busy / 1e3,
+            "window_ms": wall_us / 1e3, "kernels": len(spans),
+            "proposals": 8, "device_ops_per_call": per_call}
 
 
 def main() -> None:
@@ -511,6 +489,7 @@ def main() -> None:
 
     timing_rows, tot, by = phase_timing(rows)
     emit("timing", card=card, products=timing_rows, totals=tot)
+    emit("profile", card=card, **phase_profile(payload, rows))
 
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],

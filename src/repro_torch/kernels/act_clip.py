@@ -1,34 +1,105 @@
 """Fused activation clip + zero count — the SPE clip unit.
 
 One pass over the activations produces (a) the clipped activations
-(|x| < tau -> 0, the dynamic activation sparsity of §III) and (b) per-tile
-zero counts, which feed the calibration statistics that drive both the perf
-model (S_a in Eq. 1) and the buffer-sizing heuristic — on hardware this is the
-"dedicated counter" next to the arbiter in Fig. 3.
+(|x| < tau -> 0, the dynamic activation sparsity of §III) and (b) zero
+counts, per tile and for the whole input, which feed the calibration
+statistics that drive both the perf model (S_a in Eq. 1) and the
+buffer-sizing heuristic — on hardware this is the "dedicated counter" next to
+the arbiter in Fig. 3.
 
 On a CUDA tensor the work is done by the hand-written kernel in
-``csrc/act_clip_count.cu``; on a CPU tensor by ``ref.act_clip_count_tiles_ref``.
+``csrc/act_clip_count.cu``; on a CPU tensor by its plain version in ``ref``.
+The kernel takes an input of any shape as it lies in memory, without a padded
+copy: ``flat_tiles`` says how its n elements are cut into rows and tiles.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-#: number of kernel launches made by ``act_clip_count`` in this process
+#: wrapper calls that launched the kernel in this process. One call is two
+#: device operations: a 4-byte memset of the call's ticket word, then the
+#: kernel (its last block reduces the counts).
 launches: int = 0
 
 _FN = {torch.float32: ("hass_act_clip_count_f32", 4),
        torch.bfloat16: ("hass_act_clip_count_bf16", 8)}
+_BOUND: dict = {}
+
+
+def _fn(dtype):
+    """(ctypes function, elements per 16-byte vector), looked up once."""
+    hit = _BOUND.get(dtype)
+    if hit is None:
+        if dtype not in _FN:
+            raise TypeError(f"act_clip_count takes float32 or bfloat16, "
+                            f"got {dtype}")
+        name, vec = _FN[dtype]
+        hit = _BOUND[dtype] = (getattr(build.lib(), name), vec)
+    return hit
+
+
+def flat_tiles(n: int, bm: int = 256, bn: int = 256) -> Tuple[int, int, int]:
+    """How ``ops.act_clip`` views n elements: rows of ``cols = min(n, bn)``
+    (the last one may be short), tiles of ``bm_eff = min(bm, rows)`` rows
+    (the last one may be short). Returns (cols, bm_eff, tiles)."""
+    cols = min(n, bn)
+    rows = -(-n // cols)
+    bm_eff = min(bm, rows)
+    return cols, bm_eff, -(-rows // bm_eff)
+
+
+def _launch(x, tau, M, N, bm, bn, n_tiles):
+    """The kernel on the first ``x.numel()`` elements of an (M, N) view:
+    -> (y like x, int32 buffer of n_tiles per-tile counts, the total, the
+    blocks' scratch and, last, the ticket word that the launch zeroes)."""
+    global launches
+    if not x.is_contiguous():
+        raise ValueError("act_clip_count needs a contiguous tensor")
+    fn, vec = _fn(x.dtype)
+    y = torch.empty_like(x)
+    buf = torch.empty((n_tiles * (bm + 1) + 2,), dtype=torch.int32,
+                      device=x.device)
+    vectorised = int(N % vec == 0 and bn % vec == 0 and
+                     x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    with build.device_guard(x):
+        err = fn(x.data_ptr(), float(tau), y.data_ptr(), buf.data_ptr(),
+                 buf.data_ptr() + 4 * (buf.numel() - 1), x.numel(), M, N,
+                 bm, bn, vectorised,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "act_clip_count")
+    launches += 1
+    return y, buf
+
+
+def act_clip_count_flat(x: torch.Tensor, tau, *, bm: int = 256,
+                        bn: int = 256):
+    """Any shape -> (clipped x, zero count per tile of ``flat_tiles``
+    (elements past the end count as zeros), total zero count as a 0-d int32
+    tensor). ``tau`` is a host scalar, rounded to float32 and compared in
+    float32."""
+    n = x.numel()
+    if n == 0:
+        raise ValueError("act_clip_count_flat takes a non-empty tensor")
+    cols, bm_eff, tiles = flat_tiles(n, bm, bn)
+    if x.device.type == "cpu":
+        return ref.act_clip_count_flat_ref(x, tau, bm_eff, cols)
+    if x.device.type != "cuda":
+        raise ValueError(f"act_clip_count runs on cuda or cpu, not {x.device}")
+    y, buf = _launch(x, tau, -(-n // cols), cols, bm_eff, cols, tiles)
+    return y, buf[:tiles], buf[tiles]
 
 
 def act_clip_count(x: torch.Tensor, tau, *, bm: int = 256, bn: int = 256):
     """x: (M, N) -> (clipped (M, N), zero count per (bm, bn) tile).
 
-    M, N must be multiples of the block sizes (``ops.act_clip`` pads). ``tau``
-    is a host scalar; it is rounded to float32 and compared in float32.
+    M, N must be multiples of the block sizes (``act_clip_count_flat`` and
+    ``ops.act_clip`` take any shape). ``tau`` is a host scalar; it is rounded
+    to float32 and compared in float32.
     """
-    global launches
     if x.dim() != 2:
         raise ValueError(f"act_clip_count takes a 2-D tensor, got {x.shape}")
     M, N = x.shape
@@ -39,21 +110,6 @@ def act_clip_count(x: torch.Tensor, tau, *, bm: int = 256, bn: int = 256):
         return ref.act_clip_count_tiles_ref(x, tau, bm, bn)
     if x.device.type != "cuda":
         raise ValueError(f"act_clip_count runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _FN:
-        raise TypeError(f"act_clip_count takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("act_clip_count needs a contiguous tensor")
-    y = torch.empty_like(x)
-    cnt = torch.empty((M // bm, N // bn), dtype=torch.int32, device=x.device)
-    name, vec = _FN[x.dtype]
-    vectorised = int(N % vec == 0 and bn % vec == 0 and
-                     x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    fn = getattr(build.lib(), name)
-    with build.device_guard(x):
-        err = fn(x.data_ptr(), float(tau), y.data_ptr(), cnt.data_ptr(),
-                 M, N, bm, bn, vectorised,
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(err, "act_clip_count")
-    launches += 1
-    return y, cnt
+    tiles_m, tiles_n = M // bm, N // bn
+    y, buf = _launch(x, tau, M, N, bm, bn, tiles_m * tiles_n)
+    return y, buf[:tiles_m * tiles_n].view(tiles_m, tiles_n)

@@ -1,0 +1,142 @@
+"""Timing and bounds for the kernels on the card, shared by ``chip_smoke.py``
+and ``tools/kernel_sweep_torch.py``.
+
+Times are CUDA-event times; a bound is the least time the H100 could take for
+the same work: the larger of the bytes the function must move over the memory
+rate and its operations over the peak rate of their type (H100 SXM data
+sheet).
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12               # float32 outside the tensor cores
+BF16_FLOPS = 989e12              # dense bf16 tensor-core rate
+
+
+def time_ms(fn, *, warmup: int = 3, min_reps: int = 5, budget_ms: float = 60.0
+            ) -> float:
+    """Mean time of ``fn()`` on the card, by CUDA events around a run of
+    launches (inputs stay where the previous launch left them: warm L2, as
+    the caller that has just produced an activation finds it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    one = max(a.elapsed_time(b), 1e-3)
+    reps = int(max(min_reps, min(200, budget_ms / one)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, *, budget_ms: float = 40.0) -> float:
+    """Device time of one ``fn()``: a run of calls captured in one CUDA graph
+    and replayed, CUDA events around the replays. ``fn`` must allocate
+    nothing it keeps and must not synchronise (a kernel's wrapper; one
+    ``torch.matmul``). Warm L2, as in ``time_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    one = max(a.elapsed_time(b), 1e-3)
+    per_graph = int(max(4, min(50, budget_ms / 4 / one)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    replays = 4
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * per_graph)
+
+
+def clip_bound_ms(x: torch.Tensor, n_tiles: int) -> Tuple[float, str]:
+    """Read x once, write y once, one int32 per tile; one compare per
+    element on the float32 pipes."""
+    by = 2 * x.numel() * x.element_size() + 4 * n_tiles
+    t_bytes = by / HBM_BYTES_PER_S * 1e3
+    t_ops = x.numel() / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_bound_ms(sw, M: int, elem_size: int) -> Tuple[float, str]:
+    """The least work of ``x (M, K) @ w (K, N)`` under ``sw``'s schedule (an
+    ``ops.SparseWeight``), on the unpadded operands: 2 * M * rows * cols
+    flops for every scheduled tile (its real rows and columns inside (K,
+    N)), against x's columns that any scheduled tile names read once, the
+    scheduled part of w once, the float32 output once, and the schedule's
+    used entries."""
+    counts = sw.counts.cpu().numpy()
+    idx = sw.indices.cpu().numpy()
+    K, N = sw.shape
+    bk, bn = sw.bk, sw.bn
+    w_elems, used_kt = 0, set()
+    for j, c in enumerate(counts):
+        cols = min(bn, N - j * bn)
+        for kt in idx[j, :c].tolist():
+            w_elems += min(bk, K - kt * bk) * cols
+            used_kt.add(kt)
+    x_cols = sum(min(bk, K - kt * bk) for kt in used_kt)
+    steps = int(counts.sum())
+    flops = 2.0 * M * w_elems
+    by = (M * x_cols * elem_size + w_elems * elem_size + M * N * 4
+          + 4 * len(counts) + 4 * steps)
+    t_ops = flops / (FP32_FLOPS if elem_size == 4 else BF16_FLOPS) * 1e3
+    t_bytes = by / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tile_sparse_weight(K: int, N: int, density: float, gen: torch.Generator,
+                       lecun: bool = True) -> torch.Tensor:
+    """A (K, N) weight with about ``density`` of its 128 x 128 tiles kept;
+    ``lecun`` scales it 1/sqrt(K) as an initialised layer has it, so that
+    outputs stay O(1) at the search's large K."""
+    w = torch.randn((K, N), generator=gen)
+    if lecun:
+        w = w / np.sqrt(K)
+    Kt, Nt = -(-K // 128), -(-N // 128)
+    keep = torch.rand((Kt, Nt), generator=gen) < density
+    if density >= 1.0:
+        keep[:] = True
+    m = keep.repeat_interleave(128, 0).repeat_interleave(128, 1)[:K, :N]
+    return w * m
+
+
+def main_path_clip_shapes(batch: int = 8) -> List[Tuple[str, tuple]]:
+    """The inputs of ResNet-18's prunable layers for ``batch`` images at its
+    published 224 x 224: what one stats forward hands to ``ops.act_clip``."""
+    from repro_torch.configs.paper_cnns import RESNET18
+    from repro_torch.models import cnn
+    shapes = []
+    for s in cnn.build_specs(RESNET18):
+        if s.prunable:
+            shapes.append((s.name, (batch, s.in_hw, s.in_hw, s.cin)
+                           if s.kind == "conv" else (batch, s.cin)))
+    return shapes

@@ -9,21 +9,24 @@ t(S̄)=ceil((1-S̄)M/N) becomes ``steps = nnz_tiles(column)`` with M/N = K/bk
 tiles.
 
 The schedule (counts, indices) is the arbiter. On a CUDA tensor the product is
-the hand-written kernel in ``csrc/block_sparse_matmul.cu`` (one block per
-128 x 128 piece of the output, the loop over the scheduled K-tiles inside the
-block); on a CPU tensor it is ``ref.block_sparse_matmul_ref`` on the mask the
-schedule encodes.
+the hand-written kernel in ``csrc/block_sparse_matmul.cu``, run under a work
+plan (``make_plan``): an output tile and a split of each column's scheduled
+K-tiles into step ranges, so that the launch fills the card's SMs. On a CPU
+tensor it is ``ref.block_sparse_matmul_ref`` on the mask the schedule encodes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
-#: number of kernel launches made by ``block_sparse_matmul`` in this process
+#: wrapper calls that launched the kernel in this process. One call is one
+#: device launch where the plan has one piece per column (``max_splits ==
+#: 1``), else two: the product into a workspace, then the ordered reduction.
 launches: int = 0
 
 
@@ -115,10 +118,175 @@ def schedule_mask(counts: np.ndarray, indices: np.ndarray, Kt: int
     return mask
 
 
+#: streaming multiprocessors of an H100 SXM: the plan's unit of parallelism
+N_SM = 132
+#: output tiles (rows, columns) the kernel is built for
+TILES = ((128, 64), (64, 128), (16, 128))
+#: depth of the kernel's chunk: the unit in which a plan splits a column
+CHUNK = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkPlan:
+    """How one launch covers ``x (M, K) @ w (K, N)`` under a schedule.
+
+    ``items[b] = (m_tile, n_tile, c0, c1, slot)``: block b computes output
+    rows ``m_tile * tile[0] + [0, tile[0])`` and columns ``n_tile * tile[1] +
+    [0, tile[1])`` over chunks ``[c0, c1)`` of their schedule column ``j``
+    (chunk c is the ``CHUNK`` rows ``(c % cpt) * CHUNK`` of K-tile
+    ``indices[j, c // cpt]``, ``cpt = bk // CHUNK``), into workspace slab
+    ``slot``. ``splits[j]`` is the number of pieces (slabs) of column ``j``;
+    with ``max_splits == 1`` the items write the output directly.
+    ``promised`` is the block count the plan guarantees: half its
+    ``target``, or every piece of two chunks where the schedule has fewer."""
+    M: int
+    N: int
+    tile: Tuple[int, int]
+    items: np.ndarray
+    splits: np.ndarray
+    target: int
+    promised: int
+
+    @property
+    def blocks(self) -> int:
+        return int(self.items.shape[0])
+
+    @property
+    def max_splits(self) -> int:
+        return int(self.splits.max())
+
+
+def choose_tile(M: int) -> Tuple[int, int]:
+    """The output tile for M rows: 16 x 128 for a handful (the classifier's
+    batch), 128 x 64 from 4096 rows, else 64 x 128. (Measured on the H100,
+    ``tools/kernel_sweep_torch.py``: the two 128-thread tiles beat 128 x 128
+    at every product shape of the main path.)"""
+    if M <= 16:
+        return 16, 128
+    return (128, 64) if M >= 4096 else (64, 128)
+
+
+def make_plan(counts: np.ndarray, M: int, N: int, *, bk: int = 128,
+              bn: int = 128, tile: Optional[Tuple[int, int]] = None,
+              target: Optional[int] = None, min_chunks: int = 8
+              ) -> WorkPlan:
+    """Cut the product into about ``target`` work items: by default 2 per SM
+    from 4096 rows (there a split's f32 slab of the output, written and read
+    again, costs most) and 4 per SM below. Where the output tiles alone are
+    fewer, each schedule column's ``counts[j] * bk / CHUNK`` chunks are split
+    into contiguous, near-equal ranges of at least ``min_chunks`` chunks, or
+    where pieces that long would leave fewer than ``target // 2`` items, of
+    the most chunks (2 at the least) that give that many. A column with no steps gets one empty item, which writes its
+    zeros. Items with a split are ordered longest first, so that the last
+    wave holds the short ones."""
+    if bk % CHUNK:
+        raise ValueError(f"bk={bk} is not a multiple of {CHUNK}")
+    counts = np.asarray(counts, dtype=np.int64) * (bk // CHUNK)
+    BM, BN = tile or choose_tile(M)
+    if (BM, BN) not in TILES or bn % BN:
+        raise ValueError(f"tile {(BM, BN)} is not one of {TILES} dividing "
+                         f"bn={bn}")
+    tm, tn = -(-M // BM), -(-N // BN)
+    col = np.arange(tn) * BN // bn                # schedule column per n-tile
+    if col[-1] >= counts.shape[0]:
+        raise ValueError(f"{counts.shape[0]} schedule columns do not cover "
+                         f"N={N} at bn={bn}")
+    if target is None:
+        target = N_SM * (2 if M >= 4096 else 4)
+
+    def n_items(spi):
+        return tm * int(np.maximum(1, -(-counts[col] // spi)).sum())
+
+    if tm * tn >= target:
+        pieces = np.ones_like(counts)
+    else:
+        spi = max(1, int(tm * counts[col].sum()) // target)
+        if spi < min_chunks:    # the longest pieces that still give half
+            spi = next((c for c in range(min_chunks, 2, -1)
+                        if n_items(c) >= target // 2), 2)
+        pieces = np.maximum(1, -(-counts // spi))
+    rows = []
+    for m in range(tm):
+        for n in range(tn):
+            j, p = col[n], pieces[col[n]]
+            bounds = np.arange(p + 1) * counts[j] // p
+            rows.extend((m, n, int(bounds[s]), int(bounds[s + 1]), s)
+                        for s in range(p))
+    items = np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+    if pieces.max() > 1:
+        items = items[np.argsort(items[:, 2] - items[:, 3], kind="stable")]
+    return WorkPlan(M=M, N=N, tile=(BM, BN), items=np.ascontiguousarray(items),
+                    splits=pieces.astype(np.int32), target=target,
+                    promised=min(target // 2, n_items(2)))
+
+
 _FN = {torch.float32: "hass_block_sparse_matmul_f32",
        torch.bfloat16: "hass_block_sparse_matmul_bf16"}
-#: the kernel's fixed output piece per block, and the depth of a staged chunk
-_TM, _TN, _TK = 128, 128, 16
+_BOUND: dict = {}
+
+
+class DevicePlan:
+    """A ``WorkPlan`` with its items and splits on the card."""
+
+    def __init__(self, plan: WorkPlan, device):
+        self.plan = plan
+        self.items = torch.from_numpy(plan.items).to(device)
+        self.splits = torch.from_numpy(plan.splits).to(device)
+
+
+def _fn(dtype):
+    fn = _BOUND.get(dtype)
+    if fn is None:
+        if dtype not in _FN:
+            raise TypeError(f"block_sparse_matmul takes float32 or bfloat16, "
+                            f"got {dtype}")
+        fn = _BOUND[dtype] = getattr(build.lib(), _FN[dtype])
+    return fn
+
+
+def run_plan(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
+             dplan: DevicePlan, N: int, *, bk: int = 128, bn: int = 128
+             ) -> torch.Tensor:
+    """The kernel: ``x (M, K) @ w[:K, :N]`` under ``dplan``. ``x`` is taken
+    as it is (any M and K, no padded copy); ``w`` is the weight padded to
+    whole (bk, bn) tiles. Returns a new f32 (M, N)."""
+    global launches
+    M, K = x.shape
+    plan = dplan.plan
+    if plan.M != M or plan.N != N:
+        raise ValueError(f"the plan is for M={plan.M}, N={plan.N}; "
+                         f"got M={M}, N={N}")
+    for name, t in (("w", w), ("indices", indices), ("the plan", dplan.items),
+                    ("the plan's splits", dplan.splits)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on cuda, not {x.device}")
+    if x.dtype != w.dtype:
+        raise TypeError(f"x is {x.dtype} but w is {w.dtype}")
+    fn = _fn(x.dtype)
+    if w.shape[0] < K or w.shape[0] % bk or w.shape[1] % bn or \
+            w.shape[1] < N:
+        raise ValueError(f"w {tuple(w.shape)} is not padded to whole "
+                         f"({bk}, {bn}) tiles over K={K}, N={N}")
+    if not (x.is_contiguous() and w.is_contiguous()
+            and indices.is_contiguous()):
+        raise ValueError("block_sparse_matmul needs contiguous tensors")
+    if w.data_ptr() % 16:
+        raise ValueError("block_sparse_matmul needs a 16-byte aligned w")
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((plan.max_splits, M, N), dtype=torch.float32,
+                      device=x.device) if plan.max_splits > 1 else None)
+    with build.device_guard(x):
+        err = fn(x.data_ptr(), w.data_ptr(), indices.data_ptr(),
+                 dplan.items.data_ptr(), dplan.splits.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 M, K, N, w.shape[1], bk, bn, indices.shape[1], plan.blocks,
+                 plan.tile[0], plan.tile[1], plan.max_splits,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "block_sparse_matmul")
+    launches += 1
+    return out
 
 
 def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -128,11 +296,11 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     """x: (M, K) @ w: (K, N) skipping all-zero weight tiles.
 
     counts/indices from ``build_tile_schedule`` (int32 tensors on x's device).
-    M, K, N must be multiples of the block sizes (``ops.block_sparse_dense``
-    pads). Returns f32 (M, N). The schedule is trusted: an index past K/bk
-    reads out of bounds, as it would on any device.
+    M, K, N must be multiples of the block sizes, as for the TPU kernel
+    (``ops.SparseWeight`` takes any shape). Returns f32 (M, N). The schedule
+    is trusted: an index past K/bk reads out of bounds, as it would on any
+    device.
     """
-    global launches
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"2-D operands expected, got {x.shape}, {w.shape}")
     M, K = x.shape
@@ -144,7 +312,6 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     if indices.dim() != 2 or counts.shape != (Nt,) or indices.shape[0] != Nt:
         raise ValueError(f"schedule shapes {tuple(counts.shape)}, "
                          f"{tuple(indices.shape)} do not fit {Nt} columns")
-    max_nnz = indices.shape[1]
     if x.dtype != w.dtype:
         raise TypeError(f"x is {x.dtype} but w is {w.dtype}")
     if x.device.type == "cpu":
@@ -154,29 +321,12 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"block_sparse_matmul runs on cuda or cpu, "
                          f"not {x.device}")
-    if x.dtype not in _FN:
-        raise TypeError(f"block_sparse_matmul takes float32 or bfloat16, "
-                        f"got {x.dtype}")
     for name, t in (("w", w), ("counts", counts), ("indices", indices)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if counts.dtype != torch.int32 or indices.dtype != torch.int32:
         raise TypeError("counts and indices must be int32")
-    if not (x.is_contiguous() and w.is_contiguous()
-            and counts.is_contiguous() and indices.is_contiguous()):
-        raise ValueError("block_sparse_matmul needs contiguous tensors")
-    if M % _TM or bn % _TN or bk % _TK or max_nnz < 1:
-        raise ValueError(
-            f"the kernel takes M % {_TM} == 0, bn % {_TN} == 0 and "
-            f"bk % {_TK} == 0; got M={M}, bk={bk}, bn={bn}")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("block_sparse_matmul needs 16-byte aligned operands")
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn = getattr(build.lib(), _FN[x.dtype])
-    with build.device_guard(x):
-        err = fn(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                 indices.data_ptr(), out.data_ptr(), M, K, N, bk, bn,
-                 max_nnz, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "block_sparse_matmul")
-    launches += 1
-    return out
+    # the plan needs the counts on the host (SparseWeight keeps its plans)
+    plan = make_plan(counts.cpu().numpy(), M, N, bk=bk, bn=bn)
+    return run_plan(x, w, indices, DevicePlan(plan, x.device), N, bk=bk,
+                    bn=bn)

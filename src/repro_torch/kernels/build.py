@@ -37,15 +37,13 @@ _PTR, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
 #: C signatures; every pointer and the stream is a ``c_void_p`` so that ctypes
 #: does not cut a 64-bit address to an int
+_CLIP = (_PTR, _F32, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR)
+_MATMUL = (_PTR,) * 7 + (_LL,) * 4 + (_INT,) * 7 + (_PTR,)
 _SIGNATURES = {
-    "hass_act_clip_count_f32":
-        (_PTR, _F32, _PTR, _PTR, _LL, _LL, _INT, _INT, _INT, _PTR),
-    "hass_act_clip_count_bf16":
-        (_PTR, _F32, _PTR, _PTR, _LL, _LL, _INT, _INT, _INT, _PTR),
-    "hass_block_sparse_matmul_f32":
-        (_PTR, _PTR, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR),
-    "hass_block_sparse_matmul_bf16":
-        (_PTR, _PTR, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR),
+    "hass_act_clip_count_f32": _CLIP,
+    "hass_act_clip_count_bf16": _CLIP,
+    "hass_block_sparse_matmul_f32": _MATMUL,
+    "hass_block_sparse_matmul_bf16": _MATMUL,
 }
 
 

@@ -1,8 +1,9 @@
 """Public wrappers around the kernels.
 
-Handle padding to block multiples and schedule construction from pruned
-weights. The device decides the backend: a CUDA tensor goes through the
-hand-written kernel, a CPU tensor through the kernel's plain version.
+Any-shape entry points and schedule construction from pruned weights. The
+device decides the backend: a CUDA tensor goes through the hand-written
+kernel, which takes the operand as it lies (no padded copy), a CPU tensor
+through the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -10,9 +11,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.act_clip import act_clip_count
-from repro_torch.kernels.block_sparse_matmul import (block_sparse_matmul,
-                                                     build_tile_schedule)
+from repro_torch.kernels import ref
+from repro_torch.kernels.act_clip import act_clip_count_flat
+from repro_torch.kernels.block_sparse_matmul import (DevicePlan,
+                                                     build_tile_schedule,
+                                                     make_plan, run_plan)
 
 
 def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -33,8 +36,9 @@ def weight_tile_mask(w: np.ndarray, bk: int = 128, bn: int = 128) -> np.ndarray:
 
 class SparseWeight:
     """A pruned weight packaged with its static tile schedule (the paper's
-    compile-time arbiter table). Build once after pruning, reuse per step.
-    Everything stays on ``w``'s device."""
+    compile-time arbiter table) and, per row count M, the kernel's work plan
+    (``make_plan``). Build once after pruning, reuse per step. Everything
+    stays on ``w``'s device."""
 
     def __init__(self, w: torch.Tensor, bk: int = 128, bn: int = 128):
         self.bk, self.bn = bk, bn
@@ -43,6 +47,8 @@ class SparseWeight:
         mask = weight_tile_mask(w.detach().to("cpu", torch.float32).numpy(),
                                 bk, bn)
         counts, indices = build_tile_schedule(mask)
+        #: the schedule's counts on the host, from which plans are made
+        self.host_counts = counts
         self.mask = torch.from_numpy(mask).to(w.device)
         self.counts = torch.from_numpy(counts).to(w.device)
         self.indices = torch.from_numpy(indices).to(w.device)
@@ -51,37 +57,42 @@ class SparseWeight:
         #: scheduled (K-tile, column) steps, and what a dense product takes
         self.steps = int(counts.sum())
         self.dense_steps = int(mask.size)
+        self._plans: dict = {}
 
-    def matmul(self, x: torch.Tensor, *, bm: int = 128) -> torch.Tensor:
+    def plan(self, M: int) -> DevicePlan:
+        """The work plan for M rows, built on first use and kept."""
+        dplan = self._plans.get(M)
+        if dplan is None:
+            dplan = self._plans[M] = DevicePlan(
+                make_plan(self.host_counts, M, self.shape[1], bk=self.bk,
+                          bn=self.bn),
+                self.w_padded.device)
+        return dplan
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """x: (M, K) -> (M, N) f32, skipping all-zero weight tiles."""
         M, K = x.shape
-        xp = _pad_to(x, bm, self.bk).contiguous()
-        out = block_sparse_matmul(xp, self.w_padded, self.counts, self.indices,
-                                  bm=bm, bk=self.bk, bn=self.bn)
-        return out[:M, :self.shape[1]]
+        if K != self.shape[0]:
+            raise ValueError(f"x has K={K}, the weight {self.shape}")
+        if x.device.type == "cpu":
+            return ref.block_sparse_matmul_ref(
+                x, self.w_padded[:K, :self.shape[1]], self.mask.cpu(),
+                self.bk, self.bn)
+        return run_plan(x, self.w_padded, self.indices, self.plan(M),
+                        self.shape[1], bk=self.bk, bn=self.bn)
 
 
-def block_sparse_dense(x, w, *, bm=128, bk=128, bn=128):
+def block_sparse_dense(x, w, *, bk=128, bn=128):
     """One-shot convenience: build schedule from w's zeros and multiply."""
-    return SparseWeight(w, bk, bn).matmul(x, bm=bm)
+    return SparseWeight(w, bk, bn).matmul(x)
 
 
 def act_clip(x: torch.Tensor, tau, *, bm: int = 256, bn: int = 256):
     """Clip |x| < tau to 0; returns (y, total zero count). Any shape.
 
-    The count is a 0-d integer tensor on ``x``'s device (no host round trip).
+    The count is a 0-d int32 tensor on ``x``'s device (no host round trip).
+    On the card this is one kernel launch on ``x`` as it lies (after a
+    4-byte memset of the launch's ticket word).
     """
-    shape = x.shape
-    n = x.numel()
-    cols = min(n, bn)
-    x2 = x.reshape(-1, cols) if n % cols == 0 else \
-        F.pad(x.reshape(-1), (0, (-n) % cols)).reshape(-1, cols)
-    rows = x2.shape[0]
-    bm_eff = min(bm, rows)
-    x2 = _pad_to(x2, bm_eff, cols).contiguous()
-    y, cnt = act_clip_count(x2, tau, bm=bm_eff, bn=cols)
-    pad_zeros = y.numel() - n       # padding contributes zeros to the count
-    total = cnt.sum()
-    if pad_zeros:
-        y, total = y.reshape(-1)[:n], total - pad_zeros
-    return y.reshape(shape), total
+    y, _, total = act_clip_count_flat(x, tau, bm=bm, bn=bn)
+    return y, total

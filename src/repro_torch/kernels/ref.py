@@ -57,3 +57,50 @@ def act_clip_count_tiles_ref(x: torch.Tensor, tau, bm: int, bn: int):
     y = act_clip_ref(x, tau)
     cnt = (y == 0).reshape(M // bm, bm, N // bn, bn).sum(dim=(1, 3))
     return y, cnt.to(torch.int32)
+
+
+def act_clip_count_flat_ref(x: torch.Tensor, tau, bm: int, cols: int):
+    """Any shape, taken as rows of ``cols`` elements in tiles of ``bm`` rows
+    (the kernel's view, ``act_clip.flat_tiles``) -> (clipped x, zero count
+    per tile with the elements past the end counted as zeros, total zero
+    count as a 0-d int32 tensor): the kernel's own outputs."""
+    y = act_clip_ref(x, tau)
+    z = (y == 0).reshape(-1).to(torch.int32)
+    tile = bm * cols
+    n_tiles = -(-z.numel() // tile)
+    padded = torch.nn.functional.pad(z, (0, n_tiles * tile - z.numel()),
+                                     value=1)
+    return y, padded.reshape(n_tiles, tile).sum(1, dtype=torch.int32), \
+        z.sum(dtype=torch.int32)
+
+
+def block_sparse_matmul_plan_ref(x: torch.Tensor, w: torch.Tensor,
+                                 indices, items, splits, tile, N: int,
+                                 bk: int, bn: int, chunk: int = 16
+                                 ) -> torch.Tensor:
+    """The kernel's work plan executed chunk by chunk in float32: each item
+    ``(m_tile, n_tile, c0, c1, slot)`` sums its ``chunk``-deep pieces of the
+    scheduled K-tiles into slab ``slot``, then the slabs of each schedule
+    column are added in slot order (as the kernel's reduction does). ``w``
+    may be padded past (K, N)."""
+    M, K = x.shape
+    BM, BN = tile
+    cpt = bk // chunk
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    ws = torch.zeros((int(max(splits)), M, N), dtype=torch.float32)
+    for m_t, n_t, c0, c1, slot in (tuple(int(v) for v in r) for r in items):
+        r0, r1 = m_t * BM, min(M, (m_t + 1) * BM)
+        n0, n1 = n_t * BN, min(N, (n_t + 1) * BN)
+        acc = torch.zeros((r1 - r0, n1 - n0), dtype=torch.float32)
+        for c in range(c0, c1):
+            k0 = int(indices[n0 // bn, c // cpt]) * bk + (c % cpt) * chunk
+            k1 = min(K, k0 + chunk)
+            if k0 < k1:
+                acc += xf[r0:r1, k0:k1] @ wf[k0:k1, n0:n1]
+        ws[slot, r0:r1, n0:n1] = acc
+    out = ws[0].clone()
+    for j, p in enumerate(int(v) for v in splits):
+        cols = slice(j * bn, min(N, (j + 1) * bn))
+        for s in range(1, p):
+            out[:, cols] += ws[s, :, cols]
+    return out

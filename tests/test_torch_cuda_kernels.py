@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import block_sparse_matmul as bsm
-from repro_torch.kernels.act_clip import act_clip_count
+from repro_torch.kernels.act_clip import (act_clip_count, act_clip_count_flat,
+                                         flat_tiles)
 
 RNG = np.random.default_rng(7)
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -88,6 +89,96 @@ def test_cuda_block_sparse_matmul(cuda, M, K, N, dtype):
     np.testing.assert_allclose(_np(out), _np(oracle), atol=tol, rtol=tol)
 
 
+# the 22 products of the execute step on ResNet-18 (224 x 224, 8 images, M
+# capped at 25,088): (M, K, N)
+MAIN_PRODUCTS = [(25088, 147, 64)] + [(25088, 576, 64)] * 4 + [
+    (6272, 576, 128), (6272, 1152, 128), (6272, 64, 128), (6272, 1152, 128),
+    (6272, 1152, 128), (1568, 1152, 256), (1568, 2304, 256), (1568, 128, 256),
+    (1568, 2304, 256), (1568, 2304, 256), (392, 2304, 512), (392, 4608, 512),
+    (392, 256, 512), (392, 4608, 512), (392, 4608, 512), (8, 512, 1000),
+    (8, 512, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", sorted(set(MAIN_PRODUCTS)))
+def test_cuda_block_sparse_matmul_main_path_products(cuda, M, K, N):
+    """The execute step's shapes, unpadded x as SparseWeight.matmul takes
+    it, weights at initialisation scale (outputs O(1), 1e-4 meaningful)."""
+    x = _to_torch(RNG.normal(size=(M, K)), "float32", cuda)
+    w = _to_torch(_tile_sparse_weight(K, N) / np.sqrt(K), "float32", cuda)
+    sw = ops.SparseWeight(w)
+    out = sw.matmul(x)
+    oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(_np(out), _np(oracle), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(100, 300, 200), (1, 5, 3), (130, 147, 64),
+                                   (257, 129, 130), (8, 512, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_block_sparse_matmul_unpadded_ragged(cuda, M, K, N, dtype):
+    """Ragged M, K (odd K too) and N: the kernel reads x in place, masks
+    rows >= M and columns >= K on load and writes (M, N) directly; the same
+    operands through the plan's plain executor agree."""
+    x = _to_torch(RNG.normal(size=(M, K)), dtype, cuda)
+    w = _to_torch(_tile_sparse_weight(K, N), dtype, cuda)
+    sw = ops.SparseWeight(w)
+    out = sw.matmul(x)
+    oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
+    dp = sw.plan(M).plan
+    planned = ref.block_sparse_matmul_plan_ref(
+        x.cpu(), sw.w_padded.cpu(), sw.indices.cpu(), dp.items, dp.splits,
+        dp.tile, N, 128, 128)
+    tol = 1e-4 if dtype == "float32" else 2e-1
+    np.testing.assert_allclose(_np(out), _np(oracle), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(out), _np(planned), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", bsm.TILES)
+def test_cuda_split_k_is_bit_equal_across_calls(cuda, tile):
+    M, K, N = 392, 4608, 512
+    x = _to_torch(RNG.normal(size=(M, K)), "float32", cuda)
+    w = _to_torch(_tile_sparse_weight(K, N, p=0.2) / np.sqrt(K), "float32",
+                  cuda)
+    sw = ops.SparseWeight(w)
+    counts = sw.counts.cpu().numpy()
+    dp = bsm.DevicePlan(bsm.make_plan(counts, M, N, tile=tile, min_chunks=4, target=1000),
+                        cuda)
+    assert dp.plan.max_splits > 1
+    a = bsm.run_plan(x, sw.w_padded, sw.indices, dp, N)
+    b = bsm.run_plan(x, sw.w_padded, sw.indices, dp, N)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
+    np.testing.assert_allclose(_np(a), _np(oracle), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 9), (100, 333), (2, 56, 56, 64),
+                                   (8, 56, 56, 64), (8, 224, 224, 3),
+                                   (8, 7, 7, 512), (8, 512), (3, 1000003)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_act_clip_flat_total_and_tiles(cuda, shape, dtype):
+    """The total equals the per-tile counts minus the padding the tiles
+    would hold, and both equal the plain version; y is bit-equal."""
+    x = _to_torch(RNG.normal(size=shape), dtype, cuda)
+    x.view(-1)[::5] = 0.0
+    x.view(-1)[2::13] = -0.0
+    y, cnt, total = act_clip_count_flat(x, 0.3)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    y_ref, cnt_ref, total_ref = act_clip_count_flat(x.cpu(), 0.3)
+    assert torch.equal(y.cpu().view(bits), y_ref.view(bits))
+    assert torch.equal(cnt.cpu(), cnt_ref)
+    cols, bm, tiles = flat_tiles(x.numel())
+    padding = tiles * bm * cols - x.numel()
+    assert int(total) == int(total_ref) == int(cnt.sum()) - padding
+    assert int(total) == int((ref.act_clip_ref(x, 0.3) == 0).sum())
+
+
 @pytest.mark.cuda
 def test_cuda_masked_tiles_never_read(cuda):
     x = torch.ones((128, 256), device=cuda)
@@ -109,3 +200,45 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         act_clip_count(x, 0.0, bm=128, bn=128)
     with pytest.raises(ValueError):
         act_clip_count(torch.zeros((256, 512), device=cuda)[:, ::2], 0.0)
+    # a weight on the host beside x on the card: refused before any launch,
+    # so the card stays usable
+    sw = ops.SparseWeight(torch.ones((300, 200)))
+    with pytest.raises(ValueError):
+        sw.matmul(torch.ones((100, 300), device=cuda))
+    out = ops.SparseWeight(torch.ones((300, 200), device=cuda)).matmul(
+        torch.ones((100, 300), device=cuda))
+    assert float(out.min()) == float(out.max()) == 300.0
+
+
+@pytest.mark.cuda
+def test_cuda_act_clip_calls_share_no_state(cuda):
+    """Each call zeroes its own ticket word: calls queued on two streams at
+    once, and calls replayed from a CUDA graph beside eager ones, each give
+    their own input's count."""
+    xs = [_to_torch(RNG.normal(size=(8, 56, 56, 64)), "float32", cuda)
+          for _ in range(4)]
+    want = [int((ref.act_clip_ref(x, 0.5) == 0).sum()) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(ops.act_clip(x, 0.5)[1])
+    torch.cuda.synchronize()
+    assert [int(t) for t in got] == want
+    static = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.act_clip(static, 0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, total = ops.act_clip(static, 0.5)
+    for i in (1, 2, 3):
+        static.copy_(xs[i])
+        graph.replay()
+        eager = ops.act_clip(xs[(i + 1) % 4], 0.5)[1]
+        torch.cuda.synchronize()
+        assert int(total) == want[i] and int(eager) == want[(i + 1) % 4]

@@ -16,7 +16,7 @@ from repro.kernels import ops as jops, ref as jref
 from repro.kernels import block_sparse_matmul as jbsm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import block_sparse_matmul as bsm
-from repro_torch.kernels.act_clip import act_clip_count
+from repro_torch.kernels.act_clip import act_clip_count, act_clip_count_flat
 
 # the suite runs several test processes side by side: a few threads each
 # instead of every core each (the shapes here are tiny)
@@ -223,6 +223,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         act_clip_count(torch.zeros((100, 256)), 0.0)         # M % bm
     with pytest.raises(ValueError):
         act_clip_count(torch.zeros((256,)), 0.0)             # not 2-D
+    # the any-shape entries the main path calls take unpadded operands, but
+    # not a mismatched K, a plan made for another M, or an empty input
+    sw = ops.SparseWeight(w)
+    with pytest.raises(ValueError):
+        sw.matmul(torch.zeros((100, 120)))                   # K != 128
+    with pytest.raises(ValueError):
+        bsm.run_plan(x[:100], sw.w_padded, sw.indices, sw.plan(128), 128)
+    with pytest.raises(ValueError):
+        act_clip_count_flat(torch.zeros((0, 3)), 0.0)        # empty
 
 
 # --------------------------------------------------------------------- #
