@@ -35,12 +35,14 @@ counts the unpadded operands of the function the main path calls: padding to
 tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
-``execute``. The card's name and power limit and then one line listing every
+``execute``, and again around ``serve``. The card's name and power limit and then one line listing every
 kernel come before the last line, which is the device record. There is no CPU
 path: without a card the script exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -414,12 +416,25 @@ def device_ops(fn) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
+def busy_us(prof) -> tuple:
+    """(busy microseconds, kernel count): the union of the device
+    operations' intervals in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
 def phase_profile(payload, rows) -> dict:
     """The device's busy share over one batched round of the search (8
     proposals, after one warm-up round): the union of the kernels' intervals
     in a torch.profiler trace over the host-clock window. The profiler's own
     host cost is inside the window, so the share reads low."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.hass import hass_search
     ev = payload["ev"]
@@ -439,14 +454,8 @@ def phase_profile(payload, rows) -> dict:
     finally:
         wall_us = (time.perf_counter() - t0) * 1e6
         prof.stop()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    if not spans or busy <= 0:
+    busy, n_kernels = busy_us(prof)
+    if not n_kernels or busy <= 0:
         return {"device_busy_share": "not measured",
                 "reason": "the trace holds no device time"}
     # one call of each wrapper as the main path makes it: nothing but the
@@ -457,8 +466,225 @@ def phase_profile(payload, rows) -> dict:
     per_call = {"ops.act_clip": device_ops(lambda: ops.act_clip(x, 0.3)),
                 "SparseWeight.matmul": device_ops(lambda: sw.matmul(xm))}
     return {"device_busy_share": busy / wall_us, "busy_ms": busy / 1e3,
-            "window_ms": wall_us / 1e3, "kernels": len(spans),
+            "window_ms": wall_us / 1e3, "kernels": n_kernels,
             "proposals": 8, "device_ops_per_call": per_call}
+
+
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_SLOTS, SERVE_S_MAX = 8, 256
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, 128, 64
+TF_TOKENS, TF_SPLIT = 1300, 1268        # teacher-forcing gate (float32)
+
+
+def _sync_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def gate_teacher_forcing(cfg32, params, dev) -> float:
+    """Float32 prefill + 32 teacher-forced decode steps against the
+    full-sequence forward over 1,300 tokens (blockwise attention's ragged
+    tail at full width: 1,300 > 2 x 512). Returns the largest
+    max|dlogits| / max|logits| over the 33 positions."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    api = build_model(cfg32)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size,
+                                        size=(2, TF_TOKENS)), device=dev)
+    ref = tfm.lm_forward(cfg32, params, toks)[1][:, TF_SPLIT - 1:].clone()
+    last, cache = api.prefill(params, toks[:, :TF_SPLIT], TF_TOKENS)
+    got = [last[:, 0]]
+    for t in range(TF_SPLIT, TF_TOKENS):
+        lg, cache = api.decode_step(params, cache, toks[:, t:t + 1])
+        got.append(lg[:, 0])
+    got = torch.stack(got, dim=1)                         # (2, 33, V)
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        fail(f"serve: decode logits {tuple(got.shape)} vs {tuple(ref.shape)}"
+             " or not finite")
+    ratio = float(((got - ref).abs().amax(dim=(0, 2))
+                   / ref.abs().amax(dim=(0, 2))).max())
+    if ratio > 1e-3:
+        fail(f"serve: float32 decode differs from teacher forcing by "
+             f"{ratio:.3e} x max|logits| (limit 1e-3)")
+    return ratio
+
+
+def gate_ragged_rows(api32, params, dev) -> None:
+    """Pad-to-max + mask: a row's greedy tokens do not depend on what
+    shares its batch (float32)."""
+    from repro_torch.serve.serve_loop import ServeSession
+    sess = ServeSession(api32, params, batch_slots=SERVE_SLOTS,
+                        S_max=SERVE_S_MAX, device=dev)
+    rng = np.random.default_rng(2)
+    long = rng.integers(0, api32.cfg.vocab_size, size=100)
+    short = rng.integers(0, api32.cfg.vocab_size, size=37)
+    alone = sess.generate([long], max_new=8)[0]
+    with_short = sess.generate([long, short], max_new=8)[0]
+    swapped = sess.generate([short, long], max_new=8)
+    short_alone = sess.generate([short], max_new=8)[0]
+    if not (with_short == alone == swapped[1] and swapped[0] == short_alone):
+        fail("serve: a ragged batch's row depends on its companions: "
+             f"{alone} {with_short} {swapped} {short_alone}")
+
+
+def phase_serve(dev, card) -> dict:
+    """Qwen3-0.6B at full width through ServeSession (see the module
+    docstring). Every gate fails the script."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bench_util import lm_serve_bounds, tree_numel
+    from repro_torch.models import build_model
+    from repro_torch.serve.serve_loop import ServeSession, requests_from_trace
+    from repro_torch.sim.trace import backlogged_trace
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    cfg = get_config(SERVE_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(gen, device=dev)        # float32
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tree_numel(params)
+
+    kernels.reset_launch_counts()
+    tf_ratio = gate_teacher_forcing(cfg32, params, dev)
+    gate_ragged_rows(build_model(cfg32), params, dev)
+
+    api = build_model(cfg)
+    sess = ServeSession(api, params, batch_slots=SERVE_SLOTS,
+                        S_max=SERVE_S_MAX, device=dev)
+    bounds = lm_serve_bounds(cfg, params, batch=SERVE_SLOTS,
+                             prompt_len=SERVE_PROMPT,
+                             kv_rows=SERVE_PROMPT + SERVE_NEW / 2)
+    del params                        # the session keeps its bf16 copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    serve_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    reqs = requests_from_trace(backlogged_trace(SERVE_REQUESTS, SERVE_NEW),
+                               vocab_size=cfg.vocab_size,
+                               prompt_len=SERVE_PROMPT, seed=0)
+    prompts = [r.prompt for r in reqs]
+    toks = torch.as_tensor(np.stack(prompts[:SERVE_SLOTS]), device=dev)
+    with torch.no_grad():
+        # warm-up: first calls set up the libraries' handles and workspaces
+        lg, cache = api.prefill(sess.params, toks, SERVE_S_MAX)
+        for _ in range(3):
+            lg, cache = api.decode_step(sess.params, cache,
+                                        torch.argmax(lg[:, -1], -1)[:, None])
+        prefill_ms = sorted(
+            _sync_ms(lambda: api.prefill(sess.params, toks, SERVE_S_MAX))
+            for _ in range(5))
+        # decode steps one by one, CUDA events around each (a step's time
+        # on the stream, host gaps included)
+        lg, cache = api.prefill(sess.params, toks, SERVE_S_MAX)
+        cur = torch.argmax(lg[:, -1], -1)[:, None]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SERVE_NEW)]
+        ev[0].record()
+        for i in range(1, SERVE_NEW):
+            lg, cache = api.decode_step(sess.params, cache, cur)
+            cur = torch.argmax(lg[:, -1], -1)[:, None]
+            ev[i].record()
+        torch.cuda.synchronize()
+        step_ms = sorted(ev[i - 1].elapsed_time(ev[i])
+                         for i in range(1, SERVE_NEW))
+        del lg, cache
+
+    # the workload: 16 requests through generate, twice
+    t0 = time.perf_counter()
+    outs = sess.generate(reqs, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    again = sess.generate(prompts, max_new=SERVE_NEW)
+    n_tok = sum(len(o) for o in outs)
+    if n_tok != SERVE_REQUESTS * SERVE_NEW or \
+            not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        fail(f"serve: generate gave {n_tok} tokens or tokens out of range")
+    if again != outs:
+        fail("serve: two greedy bfloat16 generate calls differ")
+    # the open loop on a backlogged trace issues generate's model calls
+    rep = sess.serve_open_loop(
+        requests_from_trace(backlogged_trace(SERVE_REQUESTS, SERVE_NEW),
+                            vocab_size=cfg.vocab_size,
+                            prompt_len=SERVE_PROMPT, seed=0),
+        step_cycles=1.0, prefill_cycles=1.0)
+    if rep.outputs != outs:
+        fail("serve: serve_open_loop on a backlogged trace != generate")
+    if rep.decode_steps != (SERVE_REQUESTS // SERVE_SLOTS) * (SERVE_NEW - 1):
+        fail(f"serve: the open loop issued {rep.decode_steps} decode steps")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the device's busy share over 8 decode steps
+    with torch.no_grad():
+        lg, cache = api.prefill(sess.params, toks, SERVE_S_MAX)
+        cur = torch.argmax(lg[:, -1], -1)[:, None]
+        lg, cache = api.decode_step(sess.params, cache, cur)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        busy = {"device_busy_share": "not measured"}
+        try:
+            prof.start()
+        except RuntimeError as e:           # the profiler cannot trace
+            busy["reason"] = str(e)
+        else:
+            t0 = time.perf_counter()
+            try:
+                for _ in range(8):
+                    lg, cache = api.decode_step(sess.params, cache, cur)
+                    cur = torch.argmax(lg[:, -1], -1)[:, None]
+                torch.cuda.synchronize()
+            finally:
+                wall_us = (time.perf_counter() - t0) * 1e6
+                prof.stop()
+            b_us, n_k = busy_us(prof)
+            if n_k and b_us > 0:
+                busy = {"device_busy_share": b_us / wall_us,
+                        "busy_ms": b_us / 1e3, "window_ms": wall_us / 1e3,
+                        "device_ops": n_k, "device_ops_per_step": n_k / 8}
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"serve: the serving path launched an SPE kernel: {launches}")
+
+    med = step_ms[len(step_ms) // 2]
+    return {"card": card, "model": cfg.name, "dtype": cfg.dtype,
+            "params": n_params, "init_s": init_s,
+            "batch_slots": SERVE_SLOTS, "S_max": SERVE_S_MAX,
+            "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
+            "max_new": SERVE_NEW,
+            "teacher_forcing_max_rel_err": tf_ratio,
+            "teacher_forcing_limit": 1e-3,
+            "open_loop_equals_generate": True, "deterministic": True,
+            "ragged_rows_independent": True,
+            "prefill_ms": prefill_ms[len(prefill_ms) // 2],
+            "prefill_ms_min_max": [prefill_ms[0], prefill_ms[-1]],
+            "prefill_bound_ms": bounds["prefill_bound_ms"],
+            "prefill_bound_by": bounds["prefill_bound_by"],
+            "decode_ms_per_step": med,
+            "decode_ms_p10_p90": [step_ms[len(step_ms) // 10],
+                                  step_ms[(9 * len(step_ms)) // 10]],
+            "decode_ms_min_max": [step_ms[0], step_ms[-1]],
+            "decode_step_bound_ms": bounds["decode_step_bound_ms"],
+            "decode_bound_by": bounds["decode_bound_by"],
+            "generate_s": gen_s, "tokens_per_s": n_tok / gen_s,
+            "tokens_per_s_bound": SERVE_SLOTS
+            / (bounds["decode_step_bound_ms"] / 1e3),
+            "peak_allocated_bytes": peak,
+            "peak_above_weights_bytes": peak - serve_base,
+            "session_bytes": serve_base - base_bytes,
+            **busy, "spe_kernel_launches": launches}
 
 
 def main() -> None:
@@ -490,6 +716,12 @@ def main() -> None:
     timing_rows, tot, by = phase_timing(rows)
     emit("timing", card=card, products=timing_rows, totals=tot)
     emit("profile", card=card, **phase_profile(payload, rows))
+    execute_err = max(r["max_abs_err"] for r in rows)
+    # the serving slice needs none of the search's tensors
+    del payload, rows, timing_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve", **phase_serve(dev, card))
 
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
@@ -503,8 +735,7 @@ def main() -> None:
         {"name": mm["name"], "route": mm["route"], "source": mm["source"],
          "replaces": mm["replaces"],
          "launches": counts["block_sparse_matmul"],
-         "max_abs_err": max(mm["max_abs_err_f32"],
-                            max(r["max_abs_err"] for r in rows)),
+         "max_abs_err": max(mm["max_abs_err_f32"], execute_err),
          "ms": tot["ms"], "wrapper_ms": tot["wrapper_ms"],
          "plain_ms": tot["plain_ms"],
          "bound_ms": tot["bound_ms"], "bound_by": by,

@@ -1,8 +1,13 @@
-"""Deterministic synthetic data — images (tokens and frames follow with the
-LM families).
+"""Deterministic synthetic data — tokens, frames, images.
 
 Every batch is a pure function of (seed, step), so a restarted job
-regenerates exactly the stream it would have seen.
+regenerates exactly the stream it would have seen. The numbers are drawn on
+the CPU from seeded ``torch.Generator``s, so one (seed, step) gives one batch
+on every device (they are not the JAX package's numbers: ``jax.random``
+streams cannot be reproduced in torch).
+
+The LM stream is a mixture of Zipfian unigrams and a first-order Markov chain
+(repetition structure) so cross-entropy actually *decreases* under training.
 """
 from __future__ import annotations
 
@@ -10,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
 def _gen(device, seed: int, *xs: int) -> torch.Generator:
@@ -22,6 +27,25 @@ def _gen(device, seed: int, *xs: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(s)
     return g
+
+
+def lm_batch(cfg: ModelConfig, B: int, S: int, *, seed: int = 0,
+             step: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """int64 tokens (B, S) (+ float32 frames (B, F, d) for the enc-dec
+    family) on ``device``."""
+    g1, g2, g3 = (_gen("cpu", seed, step, i) for i in (1, 2, 3))
+    V = cfg.vocab_size
+    # zipf-ish marginal via exp-transformed uniforms
+    u = torch.rand((B, S), generator=g1) * (1.0 - 1e-6) + 1e-6
+    zipf = torch.clamp((u ** (-0.7) - 1.0).to(torch.int64), max=V - 1)
+    # markov "copy previous token" structure with p=0.3
+    copy = torch.rand((B, S), generator=g2) < 0.3
+    tokens = torch.where(copy, torch.roll(zipf, 1, dims=1), zipf)
+    batch = {"tokens": tokens.to(device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((B, cfg.num_frames, cfg.d_model),
+                                      generator=g3).to(device)
+    return batch
 
 
 def image_batch(cfg: ModelConfig, B: int, *, seed: int = 0, step: int = 0,
@@ -44,3 +68,12 @@ def image_batch(cfg: ModelConfig, B: int, *, seed: int = 0, step: int = 0,
     noise = torch.randn((B, cfg.img_res, cfg.img_res, 3), generator=g2)
     return {"images": (base + 0.5 * noise).to(device),
             "labels": labels.to(device)}
+
+
+def batch_for(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
+              step: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    if cfg.family == "cnn":
+        return image_batch(cfg, shape.global_batch, seed=seed, step=step,
+                           device=device)
+    return lm_batch(cfg, shape.global_batch, shape.seq_len, seed=seed,
+                    step=step, device=device)

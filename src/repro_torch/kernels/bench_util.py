@@ -140,3 +140,57 @@ def main_path_clip_shapes(batch: int = 8) -> List[Tuple[str, tuple]]:
             shapes.append((s.name, (batch, s.in_hw, s.in_hw, s.cin)
                            if s.kind == "conv" else (batch, s.cin)))
     return shapes
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def lm_serve_bounds(cfg, params, *, batch: int, prompt_len: int,
+                    kv_rows: float) -> dict:
+    """The least time of the serving loop's two calls on a dense GQA
+    transformer (``models.transformer``), from its shapes, in the config's
+    compute dtype (its element size for the bytes, the tensor-core rate for
+    a 2-byte dtype, the float32 rate otherwise):
+
+    * a decode step of ``batch`` sequences, each attending to ``kv_rows``
+      cached rows: every layer weight and the output head read once, the
+      valid K/V rows read once; 2 flops per weight per sequence plus the
+      attention's 4 * H * hd per cached row;
+    * a prefill of ``batch`` x ``prompt_len`` tokens: 2 flops per layer
+      weight per token, the causal attention (2 * 2 * H * hd per query-key
+      pair, half the square), the last position's logits; every weight read
+      once and the K/V cache written once.
+
+    The embedding rows gathered for the new tokens are not counted (B rows).
+    """
+    from repro_torch.models.common import dtype_of
+    elem_size = dtype_of(cfg.dtype).itemsize
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    layer_w = tree_numel(params["blocks"]) + d            # + final norm
+    head_w = V * d
+    kv_row_bytes = 2 * L * KV * hd * elem_size            # K and V, all layers
+    dec_bytes = (layer_w + head_w) * elem_size + batch * kv_rows * kv_row_bytes
+    dec_flops = 2 * batch * (layer_w + head_w) + 4 * L * batch * H * hd * kv_rows
+    n = batch * prompt_len
+    pre_flops = (2 * layer_w * n
+                 + 2 * L * batch * H * hd * prompt_len * (prompt_len + 1)
+                 + 2 * batch * head_w)
+    pre_bytes = (layer_w + head_w) * elem_size + n * kv_row_bytes
+    rate = BF16_FLOPS if elem_size == 2 else FP32_FLOPS
+
+    def bound(flops, by):
+        t_ops, t_bytes = flops / rate * 1e3, by / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    dec_ms, dec_by = bound(dec_flops, dec_bytes)
+    pre_ms, pre_by = bound(pre_flops, pre_bytes)
+    return {"decode_step_bound_ms": dec_ms, "decode_bound_by": dec_by,
+            "decode_step_bytes": dec_bytes, "decode_step_flops": dec_flops,
+            "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
+            "prefill_flops": pre_flops, "prefill_bytes": pre_bytes,
+            "layer_params": layer_w, "head_params": head_w}

@@ -25,24 +25,9 @@ from repro_torch.core import _dse_ckernel, pruning
 from repro_torch.core.hass import CNNEvaluator, SearchResult, hass_search
 from repro_torch.core.perf_model import FPGAModel
 from repro_torch.data.synthetic import image_batch
+from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops, ref
 from repro_torch.models import cnn
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device to run on. ``"cuda"`` needs a card: there is no silent
-    move to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' "
-                "(--device cpu) to run on the host on purpose")
-        # a float32 convolution is TF32 by default on the card; everything
-        # here is a float32 result, so both switches are off
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return dev
 
 
 def trained_cnn(cfg, steps: int = 30, batch: int = 16, lr: float = 2e-3,

@@ -220,6 +220,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.core.pruning, repro_torch.core.perf_model\n"
         "import repro_torch.core.dse, repro_torch.core.tpe\n"
         "import repro_torch.core.hass, repro_torch.search_run\n"
+        "import repro_torch.models, repro_torch.models.attention\n"
+        "import repro_torch.models.transformer, repro_torch.models.moe\n"
+        "import repro_torch.models.ssm, repro_torch.models.rwkv\n"
+        "import repro_torch.sim, repro_torch.sim.trace\n"
+        "import repro_torch.serve.serve_loop, repro_torch.device\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -243,7 +248,8 @@ def test_no_jax_import_statement_in_the_port_sources():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
                      r"from repro[. ])", re.M)
     files = [os.path.join(root, "chip_smoke.py"),
-             os.path.join(root, "examples", "hass_search_torch.py")]
+             os.path.join(root, "examples", "hass_search_torch.py"),
+             os.path.join(root, "examples", "serve_batched_torch.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
