@@ -4,6 +4,8 @@ the entry points a user calls, with both hand-written CUDA kernels built from
 their sources and held against their plain PyTorch versions.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
+    python3 chip_smoke.py --costs-out experiments/kernel_costs_h100.json
+                                     # also writes the main-path cost table
 
 Phases (each prints one JSON line; any failure exits non-zero):
 
@@ -11,16 +13,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
   kernels  each kernel against its plain version on the card: the reference
            tests' shapes and dtypes, then the search's own shapes with kernel,
            plain, bound and one-PyTorch-call times
+  kernel_costs  the pattern decode-cost tables (``kernels.kernel_costs``)
+           measured on the card at the default probe shape and at the main
+           path's (a ResNet-18 layer-3 im2col product): each probe's time,
+           mode and check against its plain version, the decode factors and
+           the block_sparse_matmul launches
   search   SGD warm-up, CNNEvaluator, hass_search hardware-aware and
            software-only (16 trials each, 8 per round), a short serial run and
            its batch_size=1 replay; counts act_clip_count launches
   execute  the winner's pruned weights through block_sparse_matmul
+  patterns the search's configuration again with the pattern axis: the
+           degenerate ("unstructured",) axis replays the search's transcript,
+           then all four patterns priced by the main-path table
   timing   the execute step's products again, timed: kernel, plain, bound,
            dense library call, and each product's work plan (tile, splits,
            blocks)
   profile  the device's busy share over one batched round of the search
            (8 proposals), from a torch.profiler trace, or "not measured";
            and the device operations of one main-path call of each wrapper
+  serve    Qwen3-0.6B at full width through ServeSession: 16 requests of 128
+           prompt tokens, 8 slots, bf16; four gates, step and prefill times
+  fleet    the serve phase's session again, open loop: the busiest replica's
+           stream of an autoscale policy search, and a degraded step schedule
+           with deadlines, each against fleet.open_loop_schedule's clocks
+  deploy   host only: search -> partition -> simulate -> SLO pick on
+           Qwen3-0.6B over 4 modeled chips (repro_torch.deploy_run)
 
 Times: ``ms`` is the device time of the call the main path makes
 (``ops.act_clip`` / ``SparseWeight.matmul`` on the operands the main path
@@ -35,12 +52,16 @@ counts the unpadded operands of the function the main path calls: padding to
 tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
-``execute``, and again around ``serve``. The card's name and power limit and then one line listing every
-kernel come before the last line, which is the device record. There is no CPU
-path: without a card the script exits 2.
+``execute``, and again around each of ``kernel_costs``' two tables,
+``patterns``, and ``serve`` with ``fleet``. The card's name and power limit
+and then one line listing every kernel, with its launches on each path, come
+before the last line, which is the device record. Each phase's seconds are
+in the ``done`` line. There is no CPU path: without a card the script exits
+2.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -297,6 +318,62 @@ def phase_kernels_matmul(dev):
             "density_sweep": sweep}
 
 
+def phase_kernel_costs(dev, costs_out=None) -> dict:
+    """Both decode-cost tables measured on the card; every probe's product
+    is checked against its plain version inside ``measure`` (1e-4), which
+    raises where one disagrees, fails to build or to launch."""
+    from repro_torch import kernels
+    from repro_torch.kernels import kernel_costs as kc
+    name = torch.cuda.get_device_name(dev)
+    tables, out = {}, {}
+    for tag, cfg in (("default", kc.MicrobenchConfig()),
+                     ("main_path", kc.MAIN_PATH_CONFIG)):
+        checks: list = []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        table = kc.measure(cfg, dev, checks=checks)
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()["block_sparse_matmul"]
+        modes = {table["dense"]["mode"]} | {
+            rec["mode"] for lv in table["patterns"].values()
+            for rec in lv.values()}
+        if modes != {"cuda", "cuda+cuda"} or table.get("unit") != "ns" or \
+                table["device"]["name"] != name:
+            fail(f"kernel_costs {tag}: modes {sorted(modes)}, unit "
+                 f"{table.get('unit')}, device {table.get('device')}")
+        if launches < 1 or not checks:
+            fail(f"kernel_costs {tag}: {launches} block_sparse_matmul "
+                 f"launches, {len(checks)} checked probes")
+        err = {p: max(c["max_abs_err"] for c in checks if c["probe"] == p)
+               for p in ("tile", "nm")}
+        if max(err.values()) > kc.PROBE_TOL:
+            fail(f"kernel_costs {tag}: probe error {err}")
+        unst = table["patterns"]["unstructured"]
+        tables[tag] = table
+        out[tag] = {
+            "config": table["config"], "seconds": seconds,
+            "block_sparse_matmul_launches": launches,
+            "probes_checked": len(checks), "max_abs_err": err,
+            "tolerance": kc.PROBE_TOL,
+            "dense_matmul_ms": table["dense"]["cycles"] / 1e6,
+            "tile_all_ones_ms": next(iter(unst.values()))["dense_ref"] / 1e6,
+            "ms": {p: {lv: rec["cycles"] / 1e6 for lv, rec in levels.items()}
+                   for p, levels in table["patterns"].items()},
+            "s_eff": {p: {lv: rec["s_eff"] for lv, rec in levels.items()}
+                      for p, levels in table["patterns"].items()},
+            "modes": sorted(modes), "decode_factors": table["decode_factors"]}
+    # a kernel that skips its zero tiles gets faster as they grow
+    unst = tables["main_path"]["patterns"]["unstructured"]
+    if not unst["0.7500"]["cycles"] < unst["0.2500"]["cycles"]:
+        fail(f"kernel_costs: the tile probe does not fall with sparsity at "
+             f"the main-path shape: {unst}")
+    if costs_out:
+        with open(costs_out, "w") as f:
+            json.dump(tables["main_path"], f, indent=1, sort_keys=True)
+            f.write("\n")
+    return {"tables": out, "main_path_table": tables["main_path"]}
+
+
 def transcript(res):
     return [(t.x.tolist(), t.score) for t in res.trials]
 
@@ -370,6 +447,48 @@ def phase_execute(payload):
          layers=[{k: v for k, v in r.items() if k != "operands"}
                  for r in rows])
     return rows
+
+
+def phase_patterns(payload, factors) -> dict:
+    """The search phase's configuration with the pattern axis (16 trials, 8
+    per round, seed 0, each arm its own evaluator): the degenerate axis must
+    replay the search phase's hardware-aware transcript bit for bit (gate 1
+    of benchmarks/sparsity_bench.py), and the four-pattern arm, priced by
+    the card's decode factors, must report ``meas`` on every trial."""
+    from repro_torch import kernels
+    from repro_torch.search_run import pattern_compare
+    kernels.reset_launch_counts()
+    out = pattern_compare(payload["ev"], factors, iters=16, seed=0,
+                          batch_size=8, meas=0.05)
+    counts = kernels.launch_counts()
+    if transcript(out["unstructured"]["result"]) != \
+            transcript(payload["hw_result"]):
+        fail("patterns: the ('unstructured',) axis did not replay the "
+             "search phase's transcript")
+    res = out["patterns"]["result"]
+    if len(res.trials) != 16 or \
+            not all("meas" in t.metrics for t in res.trials):
+        fail("patterns: a pattern trial did not report meas")
+    forwards = sum(out[a]["ev"].stats_forwards
+                   for a in ("unstructured", "patterns"))
+    if counts["act_clip_count"] != 21 * forwards or forwards < 32:
+        fail(f"patterns: act_clip_count launches {counts} over {forwards} "
+             f"stats forwards")
+    best = res.best_metrics
+    picked = [r["pattern"] for r in out["best_assignment"]]
+    return {"model": "resnet18", "img_res": RESNET18_IMG_RES, "iters": 16,
+            "batch_size": 8, "replays_search_transcript": True,
+            "pattern_costs": dict(factors), "meas_weight": 0.05,
+            "trials_per_s": {a: out[a]["trials_per_s"]
+                             for a in ("unstructured", "patterns")},
+            "best": {k: best[k] for k in
+                     ("acc", "spa", "thr", "dsp", "eff", "meas", "score")},
+            "unstructured_best": {
+                k: out["unstructured"]["result"].best_metrics[k]
+                for k in ("acc", "spa", "thr", "dsp", "eff", "score")},
+            "pattern_counts": {p: picked.count(p) for p in sorted(set(picked))},
+            "best_assignment": out["best_assignment"],
+            "stats_forwards": forwards, "launches": counts}
 
 
 def phase_timing(rows):
@@ -659,32 +778,158 @@ def phase_serve(dev, card) -> dict:
         fail(f"serve: the serving path launched an SPE kernel: {launches}")
 
     med = step_ms[len(step_ms) // 2]
-    return {"card": card, "model": cfg.name, "dtype": cfg.dtype,
-            "params": n_params, "init_s": init_s,
-            "batch_slots": SERVE_SLOTS, "S_max": SERVE_S_MAX,
-            "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
-            "max_new": SERVE_NEW,
-            "teacher_forcing_max_rel_err": tf_ratio,
-            "teacher_forcing_limit": 1e-3,
-            "open_loop_equals_generate": True, "deterministic": True,
-            "ragged_rows_independent": True,
-            "prefill_ms": prefill_ms[len(prefill_ms) // 2],
-            "prefill_ms_min_max": [prefill_ms[0], prefill_ms[-1]],
-            "prefill_bound_ms": bounds["prefill_bound_ms"],
-            "prefill_bound_by": bounds["prefill_bound_by"],
-            "decode_ms_per_step": med,
-            "decode_ms_p10_p90": [step_ms[len(step_ms) // 10],
-                                  step_ms[(9 * len(step_ms)) // 10]],
-            "decode_ms_min_max": [step_ms[0], step_ms[-1]],
-            "decode_step_bound_ms": bounds["decode_step_bound_ms"],
-            "decode_bound_by": bounds["decode_bound_by"],
-            "generate_s": gen_s, "tokens_per_s": n_tok / gen_s,
-            "tokens_per_s_bound": SERVE_SLOTS
-            / (bounds["decode_step_bound_ms"] / 1e3),
-            "peak_allocated_bytes": peak,
-            "peak_above_weights_bytes": peak - serve_base,
-            "session_bytes": serve_base - base_bytes,
-            **busy, "spe_kernel_launches": launches}
+    record = {"card": card, "model": cfg.name, "dtype": cfg.dtype,
+              "params": n_params, "init_s": init_s,
+              "batch_slots": SERVE_SLOTS, "S_max": SERVE_S_MAX,
+              "requests": SERVE_REQUESTS, "prompt_len": SERVE_PROMPT,
+              "max_new": SERVE_NEW,
+              "teacher_forcing_max_rel_err": tf_ratio,
+              "teacher_forcing_limit": 1e-3,
+              "open_loop_equals_generate": True, "deterministic": True,
+              "ragged_rows_independent": True,
+              "prefill_ms": prefill_ms[len(prefill_ms) // 2],
+              "prefill_ms_min_max": [prefill_ms[0], prefill_ms[-1]],
+              "prefill_bound_ms": bounds["prefill_bound_ms"],
+              "prefill_bound_by": bounds["prefill_bound_by"],
+              "decode_ms_per_step": med,
+              "decode_ms_p10_p90": [step_ms[len(step_ms) // 10],
+                                    step_ms[(9 * len(step_ms)) // 10]],
+              "decode_ms_min_max": [step_ms[0], step_ms[-1]],
+              "decode_step_bound_ms": bounds["decode_step_bound_ms"],
+              "decode_bound_by": bounds["decode_bound_by"],
+              "generate_s": gen_s, "tokens_per_s": n_tok / gen_s,
+              "tokens_per_s_bound": SERVE_SLOTS
+              / (bounds["decode_step_bound_ms"] / 1e3),
+              "peak_allocated_bytes": peak,
+              "peak_above_weights_bytes": peak - serve_base,
+              "session_bytes": serve_base - base_bytes,
+              **busy, "spe_kernel_launches": launches}
+    return sess, record
+
+
+FLEET_REPLAY = 12          # requests of the busiest replica replayed
+
+
+def phase_fleet(sess) -> dict:
+    """The serve phase's session (Qwen3-0.6B, bf16, 8 slots) through
+    ``serve_open_loop`` twice, each run's admission and completion clocks
+    held bit for bit against ``fleet.open_loop_schedule``:
+
+    1. act 3 of ``examples/fleet_serve.py`` at full width: an autoscale
+       policy search (32 trials, up to 4 replicas) over a seeded MMPP trace
+       of 4,000 requests, then the first ``FLEET_REPLAY`` requests that its
+       fleet routed to the busiest replica, at their routing times;
+    2. a degraded step schedule (three rungs, a switch stall) with
+       per-request deadlines, the form of ``tests/test_fleet.py``'s
+       ``test_degraded_schedule_is_exact_timing_twin``."""
+    from repro_torch.serve.fleet import open_loop_schedule
+    from repro_torch.serve.serve_loop import Request, requests_from_trace
+    from repro_torch.sim import Trace, autoscale_policy_search, mmpp_trace
+    vocab = sess.api.cfg.vocab_size
+    out = {}
+
+    def served(tag, reqs, rep, adm, comp, **extra):
+        if not (np.array_equal(rep.admissions, adm)
+                and np.array_equal(rep.completions, comp)):
+            fail(f"fleet {tag}: serve_open_loop's clocks differ from "
+                 f"fleet.open_loop_schedule's")
+        if rep.shed + rep.completed != len(reqs):
+            fail(f"fleet {tag}: {rep.shed} shed + {rep.completed} completed "
+                 f"!= {len(reqs)}")
+        for r, o, shed in zip(reqs, rep.outputs, rep.shed_mask):
+            if len(o) != (0 if shed else r.max_new) or \
+                    not all(0 <= t < vocab for t in o):
+                fail(f"fleet {tag}: a request emitted {len(o)} tokens")
+        out[tag] = {"requests": len(reqs), "completed": rep.completed,
+                    "shed": rep.shed, "prefills": rep.prefills,
+                    "decode_steps": rep.decode_steps,
+                    "p50_cycles": rep.p50, "p99_cycles": rep.p99,
+                    "clocks_equal_open_loop_schedule": True, **extra}
+
+    kw = dict(step_cycles=100.0, prefill_cycles=300.0)
+    tr = mmpp_trace(4000, 2e-4, 1.5e-2, dwell_base=3e5, dwell_burst=8e4,
+                    sizes=[8, 16], seed=0)
+    t0 = time.perf_counter()
+    pol, frep, base = autoscale_policy_search(
+        tr, max_replicas=4, n_trials=32, seed=0, batch_slots=sess.B, **kw)
+    search_s = time.perf_counter() - t0
+    busiest = int(np.argmax(np.bincount(frep.assignment, minlength=4)))
+    idx = np.flatnonzero(frep.assignment == busiest)[:FLEET_REPLAY]
+    sub = Trace(frep.routed_at[idx] - frep.routed_at[idx].min(),
+                tr.sizes[idx], kind=tr.kind)
+    reqs = requests_from_trace(sub, vocab_size=vocab, prompt_len=8, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = sess.serve_open_loop(reqs, **kw)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    adm, comp = open_loop_schedule(sub.arrivals, sub.sizes,
+                                   batch_slots=sess.B, **kw)
+    served("replica_replay", reqs, rep, adm, comp, replica=busiest,
+           policy=dataclasses.asdict(pol), fleet_p99_cycles=frep.p99,
+           static_best=base["static_best"], policy_search_s=search_s,
+           serve_s=serve_s, serve_s_per_decode_step=serve_s
+           / max(1, rep.decode_steps))
+
+    rng = np.random.default_rng(8)
+    n = 16
+    arr = np.cumsum(rng.exponential(250.0, n)).astype(float)
+    new = rng.integers(4, 20, n).astype(float)
+    dls = arr + rng.uniform(8e2, 8e3, n)
+    sched = [(0.0, 1.0), (float(arr[5]), 0.6), (float(arr[11]), 0.85)]
+    reqs = [Request(prompt=rng.integers(0, vocab, size=5),
+                    max_new=int(new[i]), arrival=float(arr[i]),
+                    deadline=float(dls[i])) for i in range(n)]
+    dkw = dict(step_cycles=25.0, prefill_cycles=75.0, step_schedule=sched,
+               switch_cycles=40.0)
+    t0 = time.perf_counter()
+    rep = sess.serve_open_loop(reqs, **dkw)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    adm, comp = open_loop_schedule(arr, new, batch_slots=sess.B,
+                                   deadlines=dls, **dkw)
+    served("degraded", reqs, rep, adm, comp,
+           switch_stalls=rep.switch_stalls, serve_s=serve_s)
+    return out
+
+
+def phase_deploy() -> dict:
+    """Host only: ``examples/deploy_sim_torch.py``'s flow at its defaults
+    (Qwen3-0.6B ``LMEvaluator``, ``TPUModel(chips=4)``, 600 MMPP requests,
+    ``objective="slo"``). On the run's trace the calendar engine's report
+    must equal the heap engine's field for field, and every node's busy +
+    blocked + idle + down time must add up to the horizon."""
+    from repro_torch.deploy_run import deploy_compare
+    from repro_torch.sim import simulate_partition
+    t0 = time.perf_counter()
+    d = deploy_compare()
+    sl, tpu = d["slo_pick"], d["tpu"]
+    if sl.objective != "slo" or sl.sim_report is None:
+        fail("deploy: the SLO pick carries no sim_report")
+    reps = {e: simulate_partition(d["layers"], tpu, sl, d["trace"], engine=e)
+            for e in ("heap", "calendar")}
+    for f in dataclasses.fields(reps["heap"]):
+        a, b = getattr(reps["heap"], f.name), getattr(reps["calendar"],
+                                                     f.name)
+        if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b):
+            fail(f"deploy: calendar != heap engine in SimReport.{f.name}")
+    r = reps["calendar"]
+    total = r.busy + r.blocked + r.idle + r.down
+    if not np.allclose(total, r.horizon, rtol=1e-9):
+        fail(f"deploy: busy + blocked + idle + down {total} != horizon "
+             f"{r.horizon}")
+    ms = 1e3 / tpu.freq
+    return {"host_only": True, "model": d["cfg"].name, "chips": tpu.chips,
+            "requests": len(d["trace"]), "trace": d["trace"].kind,
+            "slo_p99_ms": d["slo"].target * ms,
+            "picks": {tag: {"cuts": p.cuts,
+                            "steady_tok_s": p.steady_throughput * tpu.freq,
+                            "p50_ms": d["reports"][tag].p50 * ms,
+                            "p99_ms": d["reports"][tag].p99 * ms}
+                      for tag, p in (("maxmin", d["maxmin"]), ("slo", sl))},
+            "calendar_equals_heap": True, "time_conserved": True,
+            "slo_pick_s": d["slo_s"], "seconds": time.perf_counter() - t0}
 
 
 def main() -> None:
@@ -698,31 +943,65 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.search_run import resolve_device
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--costs-out", default=None,
+                    help="also write the main-path decode-cost table here")
+    args = ap.parse_args()
+
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 2)
+        return r
+
     dev = resolve_device("cuda")
-    card = phase_device()
-    clip = phase_kernels_clip(dev)
-    mm = phase_kernels_matmul(dev)
+    card = timed("device", phase_device)
+    clip = timed("kernels_clip", phase_kernels_clip, dev)
+    mm = timed("kernels_matmul", phase_kernels_matmul, dev)
     emit("kernels", kernels=[clip, mm])
+    costs = timed("kernel_costs", phase_kernel_costs, dev, args.costs_out)
+    emit("kernel_costs", card=card, **costs["tables"])
 
     # the main path: every launch counter to 0 just before, read just after
     kernels.reset_launch_counts()
-    payload = phase_search(dev)
-    rows = phase_execute(payload)
+    payload = timed("search", phase_search, dev)
+    rows = timed("execute", phase_execute, payload)
     counts = kernels.launch_counts()
     if counts["act_clip_count"] < 21 or counts["block_sparse_matmul"] != 22:
         fail(f"the main path did not go through the kernels: {counts}")
 
-    timing_rows, tot, by = phase_timing(rows)
+    factors = costs["main_path_table"]["decode_factors"]
+    pat = timed("patterns", phase_patterns, payload, factors)
+    emit("patterns", card=card, **pat)
+    timing_rows, tot, by = timed("timing", phase_timing, rows)
     emit("timing", card=card, products=timing_rows, totals=tot)
-    emit("profile", card=card, **phase_profile(payload, rows))
+    emit("profile", card=card, **timed("profile", phase_profile, payload,
+                                       rows))
     execute_err = max(r["max_abs_err"] for r in rows)
     # the serving slice needs none of the search's tensors
     del payload, rows, timing_rows
     gc.collect()
     torch.cuda.empty_cache()
-    emit("serve", **phase_serve(dev, card))
+    sess, serve = timed("serve", phase_serve, dev, card)
+    emit("serve", **serve)
+    emit("fleet", card=card, **timed("fleet", phase_fleet, sess))
+    if any(kernels.launch_counts().values()):
+        fail(f"fleet: the serving path launched an SPE kernel: "
+             f"{kernels.launch_counts()}")
+    del sess
+    gc.collect()
+    emit("deploy", **timed("deploy", phase_deploy))
 
+    path_launches = {
+        "act_clip_count": {"search+execute": counts["act_clip_count"],
+                           "patterns": pat["launches"]["act_clip_count"]},
+        "block_sparse_matmul": {
+            "search+execute": counts["block_sparse_matmul"],
+            **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
+               for t, v in costs["tables"].items()}}}
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
          "source": clip["source"], "replaces": clip["replaces"],
@@ -731,7 +1010,8 @@ def main() -> None:
          "wrapper_ms": clip["wrapper_ms"], "plain_ms": clip["plain_ms"],
          "plain_device_ms": clip["plain_device_ms"],
          "bound_ms": clip["bound_ms"],
-         "bound_by": clip["bound_by"], "library_ms": clip["library_ms"]},
+         "bound_by": clip["bound_by"], "library_ms": clip["library_ms"],
+         "path_launches": path_launches["act_clip_count"]},
         {"name": mm["name"], "route": mm["route"], "source": mm["source"],
          "replaces": mm["replaces"],
          "launches": counts["block_sparse_matmul"],
@@ -739,9 +1019,11 @@ def main() -> None:
          "ms": tot["ms"], "wrapper_ms": tot["wrapper_ms"],
          "plain_ms": tot["plain_ms"],
          "bound_ms": tot["bound_ms"], "bound_by": by,
-         "library_ms": tot["library_ms"]},
+         "library_ms": tot["library_ms"],
+         "path_launches": path_launches["block_sparse_matmul"]},
     ]}
-    emit("done", seconds=round(time.perf_counter() - t_start, 1))
+    emit("done", seconds=round(time.perf_counter() - t_start, 1),
+         phase_seconds=phase_s)
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

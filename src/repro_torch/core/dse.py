@@ -1948,10 +1948,12 @@ def partition_pipeline(layers: Sequence[LayerCost], hw: HardwareModel,
     L = len(layers)
     multi_chip = isinstance(hw, TPUModel) and hw.chips > 1
     if objective == "slo":
-        raise NotImplementedError(
-            "objective='slo' needs the serving simulator (sim/slo.py), "
-            "which has no PyTorch counterpart yet: see ROADMAP.md, "
-            "Queue 1 'Serving and simulation'")
+        from repro_torch.sim.slo import slo_partition_search
+        return slo_partition_search(
+            layers, hw, budget, slo=slo, trace=trace, n_parts=n_parts,
+            batch=batch, reconfig_cycles=reconfig_cycles,
+            dse_iters=dse_iters, cut_points=cut_points, cache=cache,
+            chip_budgets=chip_budgets, **(sim_kw or {}))
     if slo is not None or trace is not None:
         raise ValueError("slo=/trace= are only read by objective='slo'")
     if objective == "auto":

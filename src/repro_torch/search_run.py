@@ -6,7 +6,9 @@
 2. ``search_compare``  — ``CNNEvaluator`` + ``hass_search``, hardware-aware
    against software-metrics-only, on the FPGA performance model;
 3. ``execute_winner``  — the winning proposal's pruned weights multiplied
-   through their static tile schedules by the ``block_sparse_matmul`` kernel.
+   through their static tile schedules by the ``block_sparse_matmul`` kernel;
+4. ``pattern_compare`` — the sparsity-pattern axis on the same evaluator,
+   priced by the decode factors of ``kernels.kernel_costs``.
 
 Everything runs on the card unless the caller passes ``device="cpu"``;
 asking for the card on a machine that has none raises.
@@ -22,7 +24,8 @@ import torch
 
 from repro_torch.configs.paper_cnns import RESNET18
 from repro_torch.core import _dse_ckernel, pruning
-from repro_torch.core.hass import CNNEvaluator, SearchResult, hass_search
+from repro_torch.core.hass import (CNNEvaluator, Lambdas, SearchResult,
+                                   hass_search)
 from repro_torch.core.perf_model import FPGAModel
 from repro_torch.data.synthetic import image_batch
 from repro_torch.device import resolve_device
@@ -104,6 +107,43 @@ def search_compare(iters: int = 16, img_res: int = 224, seed: int = 0,
         "hw_best": hw_res.best_metrics, "sw_best": sw_res.best_metrics,
         "ev": ev, "hw_result": hw_res, "sw_result": sw_res,
     }
+
+
+def pattern_compare(ev: CNNEvaluator, pattern_costs: Dict[str, float], *,
+                    iters: int = 16, seed: int = 0,
+                    batch_size: Optional[int] = 8,
+                    meas: float = 0.05) -> dict:
+    """The sparsity-pattern axis (DESIGN.md §16) on ``ev``'s network,
+    calibration batch and hardware model, in two hardware-aware searches:
+
+    * ``unstructured`` — the degenerate axis ``patterns=("unstructured",)``,
+      which must replay a ``patterns=None`` search trial for trial;
+    * ``patterns`` — every pattern of ``pruning.PATTERNS`` as one categorical
+      variable per prunable layer, priced by the decode factors
+      ``pattern_costs`` (``kernels.kernel_costs.decode_factors``) in Eq. 1
+      and, with weight ``meas``, in Eq. 6.
+
+    Each arm has its own evaluator (``dataclasses.replace`` of ``ev``)."""
+    L = len(ev.prunable)
+    out: dict = {}
+    for arm, kw, lam in (
+            ("unstructured", dict(patterns=("unstructured",)), None),
+            ("patterns", dict(patterns=pruning.PATTERNS,
+                              pattern_costs=dict(pattern_costs)),
+             Lambdas(meas=meas))):
+        pev = dataclasses.replace(ev, **kw)
+        t0 = time.perf_counter()
+        res = hass_search(pev, L, iters=iters, seed=seed, lambdas=lam,
+                          batch_size=batch_size or None)
+        _sync(pev.device)
+        dt = time.perf_counter() - t0
+        out[arm] = {"ev": pev, "result": res, "trials_per_s": iters / dt}
+    pev, res = out["patterns"]["ev"], out["patterns"]["result"]
+    codes = pev._pattern_codes(res.best_x)
+    out["best_assignment"] = [
+        {"layer": n, "pattern": pev.patterns[int(c)], "s_w": float(s)}
+        for n, c, s in zip(pev.names, codes, pev._split(res.best_x)[0])]
+    return out
 
 
 def _sync(dev: torch.device) -> None:

@@ -129,10 +129,30 @@ def test_partition_pipeline_bit_identical(objective, chips):
 
 
 def test_partition_slo_objective_waits_for_the_simulator():
+    """``objective="slo"`` delegates to the port's simulator
+    (``sim.slo.slo_partition_search``): on the same layers and trace its
+    pick, with the winning ``sim_report``, equals the JAX package's."""
+    from repro import sim as jsim
+    from repro_torch import sim as tsim
+    picks = []
+    for pm, configs, dse, sim in ((jpm, jconfigs, jdse, jsim),
+                                  (tpm, tconfigs, tdse, tsim)):
+        layers = _sparse_stack(pm, configs, "resnet18", seed=0)
+        tpu = pm.TPUModel(chips=4)
+        kw = dict(n_parts=4, batch=16, dse_iters=80)
+        mm = dse.partition_pipeline(layers, tpu, tpu.chip_budget,
+                                    objective="maxmin", **kw)
+        rate = sim.request_rate(mm.steady_throughput, 0.4, 16)
+        tr = sim.mmpp_trace(250, 0.6 * rate, 3 * rate, dwell_base=4 / rate,
+                            dwell_burst=1 / rate, sizes=16, seed=0)
+        p99 = sim.simulate_partition(layers, tpu, mm, tr).p99
+        picks.append(dse.partition_pipeline(
+            layers, tpu, tpu.chip_budget, objective="slo",
+            slo=sim.SLO(target=0.9 * p99), trace=tr, **kw))
+    j, t = picks
+    assert t.objective == "slo" and t.sim_report is not None
+    assert _as_plain(j) == _as_plain(t)
     tl = _sparse_stack(tpm, tconfigs, "resnet18")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdse.partition_pipeline(tl, tpm.FPGAModel(), 4096.0, n_parts=2,
-                                objective="slo")
     with pytest.raises(ValueError):
         tdse.partition_pipeline(tl, tpm.FPGAModel(), 4096.0, n_parts=2,
                                 objective="nope")
@@ -225,6 +245,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.models.ssm, repro_torch.models.rwkv\n"
         "import repro_torch.sim, repro_torch.sim.trace\n"
         "import repro_torch.serve.serve_loop, repro_torch.device\n"
+        "import repro_torch.kernels.kernel_costs, repro_torch.sim.engine\n"
+        "import repro_torch.sim.faults, repro_torch.sim.slo\n"
+        "import repro_torch.serve.fleet, repro_torch.deploy_run\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -249,7 +272,9 @@ def test_no_jax_import_statement_in_the_port_sources():
                      r"from repro[. ])", re.M)
     files = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "examples", "hass_search_torch.py"),
-             os.path.join(root, "examples", "serve_batched_torch.py")]
+             os.path.join(root, "examples", "serve_batched_torch.py"),
+             os.path.join(root, "examples", "sparsity_patterns_torch.py"),
+             os.path.join(root, "examples", "deploy_sim_torch.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
