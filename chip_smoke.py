@@ -38,6 +38,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
            with deadlines, each against fleet.open_loop_schedule's clocks
   deploy   host only: search -> partition -> simulate -> SLO pick on
            Qwen3-0.6B over 4 modeled chips (repro_torch.deploy_run)
+  train    Qwen3-0.6B at full width trained 8 AdamW steps through
+           make_train_step fed by DataPipeline (bf16 compute, float32
+           masters, accum 2, remat "full"): step times, tokens/s, peak
+           memory, busy share, the step's bound; gates: the loss falls, card
+           == CPU (float32, depth 2), accum 2 == 1 and remat none == full ==
+           dots, restart bitwise deterministic (int8 state, deterministic
+           algorithms), no SPE kernel launched
 
 Times: ``ms`` is the device time of the call the main path makes
 (``ops.act_clip`` / ``SparseWeight.matmul`` on the operands the main path
@@ -53,7 +60,7 @@ tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around each of ``kernel_costs``' two tables,
-``patterns``, and ``serve`` with ``fleet``. The card's name and power limit
+``patterns``, ``serve`` with ``fleet``, and ``train``. The card's name and power limit
 and then one line listing every kernel, with its launches on each path, come
 before the last line, which is the device record. Each phase's seconds are
 in the ``done`` line. There is no CPU path: without a card the script exits
@@ -68,10 +75,16 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
+# the train phase's restart gate runs under torch.use_deterministic_algorithms,
+# which needs cuBLAS held to a fixed workspace from its first handle on: eight
+# buffers of 4 MiB (every earlier phase's products run under it too)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 RESNET18_IMG_RES = 224
 CALIB_BATCH = 8
@@ -932,6 +945,346 @@ def phase_deploy() -> dict:
             "slo_pick_s": d["slo_s"], "seconds": time.perf_counter() - t0}
 
 
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 256
+GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 64     # gates 2-4: depth cut to 2
+
+
+def _to(tree, dev):
+    """A copy of a tree of tensors / Packed8 on ``dev``."""
+    from repro_torch.train.optimizer import Packed8
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, Packed8):
+        return Packed8(_to(tree.q, dev), _to(tree.s, dev), tree.shape)
+    return tree.detach().to(dev, copy=True)
+
+
+def _leaf_pairs(a, b, path=""):
+    from repro_torch.train.optimizer import Packed8
+    if isinstance(a, dict):
+        for k in a:
+            yield from _leaf_pairs(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, Packed8):
+        yield f"{path}/q", a.q, b.q
+        yield f"{path}/s", a.s, b.s
+    else:
+        yield path, a, b
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = _bits(a), _bits(b)
+    return torch.equal(a, b)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x, _ in
+               _leaf_pairs(tree, tree))
+
+
+def gate_card_vs_cpu(cfg32, dev) -> dict:
+    """Float32 at full width, depth cut to 2: one ``compute_grads`` on the
+    card and one on the CPU from the same parameters (loss within relative
+    1e-5, each gradient leaf within 1e-4 x its max |g|), then one
+    ``adamw_update`` on both sides from the CPU's gradients (parameters
+    within 1e-6)."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, adamw_update, \
+        init_opt_state
+    from repro_torch.train.train_loop import TrainConfig, compute_grads
+    api = build_model(cfg32)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    p_cpu = api.init(gen, device="cpu")
+    p_dev = _to(p_cpu, dev)
+    batch = lm_batch(cfg32, GATE_BATCH, GATE_SEQ, seed=1, step=0,
+                     device="cpu")
+    tcfg = TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2,
+                                     total_steps=16), accum=1, remat=None)
+    g_dev, l_dev, _ = compute_grads(api.loss, tcfg, p_dev, _to(batch, dev))
+    g_cpu, l_cpu, _ = compute_grads(api.loss, tcfg, p_cpu, batch)
+    loss_rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    if not loss_rel <= 1e-5:
+        fail(f"train: card loss {float(l_dev)} vs CPU {float(l_cpu)} "
+             f"(relative {loss_rel:.3e}, limit 1e-5)")
+    grad_worst = 0.0
+    for path, gd, gc_ in _leaf_pairs(g_dev, g_cpu):
+        scale = float(gc_.abs().max())
+        err = float((gd.cpu() - gc_).abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"train: card gradient {path} differs from the CPU's by "
+                 f"{err:.3e} (limit 1e-4 x {scale:.3e})")
+        grad_worst = max(grad_worst, err / scale if scale else 0.0)
+    adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, tcfg.opt), tcfg.opt)
+    adamw_update(p_dev, _to(g_cpu, dev), init_opt_state(p_dev, tcfg.opt),
+                 tcfg.opt)
+    p_err = max(float((a.cpu() - b).abs().max())
+                for _, a, b in _leaf_pairs(p_dev, p_cpu))
+    if not p_err <= 1e-6:
+        fail(f"train: card AdamW step differs from the CPU's by {p_err:.3e} "
+             "(limit 1e-6)")
+    return {"loss_rel_err": loss_rel, "grad_max_err_of_max": grad_worst,
+            "adamw_param_max_err": p_err,
+            "limits": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
+                       "param": 1e-6}}
+
+
+def gate_accum_remat(cfg32, dev) -> dict:
+    """Float32 at the gate size on the card: one step with accum 2 against
+    accum 1 (parameters within 1e-5, the loss within relative 1e-5), and
+    remat None / "full" / "dots" (losses within relative 1e-6), the bars
+    of the reference's tests."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import (TrainConfig, init_train_state,
+                                              make_train_step)
+    api = build_model(cfg32)
+    batch = lm_batch(cfg32, GATE_BATCH, GATE_SEQ, seed=2, step=0, device=dev)
+
+    def one_step(accum, remat):
+        tcfg = TrainConfig(opt=OptConfig(lr=1e-3), accum=accum, remat=remat)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        state = init_train_state(api.init, tcfg, gen, device=dev)
+        return make_train_step(api.loss, tcfg)(state, batch)
+
+    (s1, m1), (s2, m2) = one_step(1, None), one_step(2, None)
+    d_accum = max(float((a - b).abs().max())
+                  for _, a, b in _leaf_pairs(s1["params"], s2["params"]))
+    l_accum = abs(float(m1["loss"]) - float(m2["loss"])) / float(m1["loss"])
+    if not (d_accum < 1e-5 and l_accum <= 1e-5):
+        fail(f"train: accum 2 != accum 1: params {d_accum:.3e} (limit "
+             f"1e-5), loss {l_accum:.3e} (limit 1e-5)")
+    del s1, s2
+    losses = {str(r): float(one_step(1, r)[1]["loss"])
+              for r in (None, "full", "dots")}
+    l_remat = max(abs(v - losses["None"]) / losses["None"]
+                  for v in losses.values())
+    if not l_remat <= 1e-6:
+        fail(f"train: remat changes the loss: {losses} (limit 1e-6)")
+    return {"accum_param_max_err": d_accum, "accum_loss_rel_err": l_accum,
+            "remat_losses": losses, "remat_loss_rel_err": l_remat,
+            "limits": {"accum_param": 1e-5, "accum_loss_rel": 1e-5,
+                       "remat_loss_rel": 1e-6}}
+
+
+def gate_restart(cfg, dev) -> dict:
+    """bf16 compute, int8 AdamW state, at the gate size: 6 steps of
+    ``run_resilient`` (checkpoints every 2 steps, async) and again with a
+    RuntimeError after step 5; the loss histories and the final states must
+    be equal bit for bit, and a checkpoint of the final state (with a bf16
+    copy of its parameters) must restore bit for bit. Runs under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding backward and
+    softmax_xent's gather accumulate with atomics otherwise), restored after
+    it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.fault_tolerance import run_resilient
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import (TrainConfig, init_train_state,
+                                              make_train_step)
+    api = build_model(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2, total_steps=16,
+                                     state_dtype="int8"),
+                       accum=2, remat="full")
+    pipe = DataPipeline(cfg, ShapeConfig("gate", GATE_SEQ, GATE_BATCH,
+                                         "train"), seed=3, device=dev,
+                        prefetch=0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = []
+            for tag, fail_at in (("clean", None),
+                                 ("crash", {5: RuntimeError("injected")})):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(4)
+                state = init_train_state(api.init, tcfg, gen, device=dev)
+                step_fn = make_train_step(api.loss, tcfg)
+                last = {}
+
+                def step(s, b, step_fn=step_fn, last=last):
+                    last["state"], m = step_fn(s, b)
+                    return last["state"], m
+
+                mgr = CheckpointManager(os.path.join(tmp, tag), keep=3,
+                                        async_save=True)
+                rep = run_resilient(step, state, pipe.batch_at, steps=6,
+                                    ckpt=mgr, ckpt_every=2, fail_at=fail_at)
+                runs.append((rep, last["state"]))
+            (r1, s1), (r2, s2) = runs
+            if r2.restarts != 1 or r2.history[:5] != r1.history[:5] or \
+                    r2.history[5:] != r1.history[4:]:
+                fail(f"train: the restart is not exact: {r1.history} vs "
+                     f"{r2.history} ({r2.restarts} restarts)")
+            for path, a, b in _leaf_pairs(s1, s2):
+                if not _bits_equal(a, b):
+                    fail(f"train: the replayed state differs at {path}")
+            tree = {"state": s2, "params_bf16": {
+                k: v.to(torch.bfloat16) for k, v in
+                s2["params"]["blocks"]["attn"].items()}}
+            save_checkpoint(os.path.join(tmp, "roundtrip"), 6, tree)
+            back, _, _ = restore_checkpoint(os.path.join(tmp, "roundtrip"),
+                                            device=dev)
+            for path, a, b in _leaf_pairs(tree, back):
+                if not _bits_equal(a, b):
+                    fail(f"train: checkpoint round trip changed {path}")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return {"histories": [r1.history, r2.history], "restarts": r2.restarts,
+            "history_bitwise_equal": True, "final_state_bitwise_equal": True,
+            "roundtrip_bitwise_equal": True,
+            "roundtrip_dtypes": sorted({str(b.dtype) for _, _, b in
+                                        _leaf_pairs(back, back)})}
+
+
+def phase_train(dev, card) -> dict:
+    """Qwen3-0.6B at full width (28 layers, d 1024, vocab 151,936, tied),
+    random weights from seed 0, bf16 compute with float32 masters, trained
+    8 AdamW steps of 8 x 256 tokens (accum 2, remat "full", float32 state)
+    through ``make_train_step`` fed by ``DataPipeline(prefetch=2)``; then
+    the gates (module docstring). Every gate fails the script."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.bench_util import lm_train_bounds
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_loop import (TrainConfig, compute_grads,
+                                              init_train_state,
+                                              make_train_step)
+
+    kernels.reset_launch_counts()
+    cfg = get_config(TRAIN_ARCH)
+    api = build_model(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2,
+                                     total_steps=16), accum=2, remat="full")
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    state = init_train_state(api.init, tcfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = _tree_bytes(state)
+    bounds = lm_train_bounds(cfg, state["params"], batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ)
+    step_fn = make_train_step(api.loss, tcfg)
+    pipe = DataPipeline(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"), seed=0, device=dev,
+                        prefetch=2)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, next(pipe))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses}")
+
+    # the device's busy share over one more step
+    busy = {"device_busy_share": "not measured"}
+    batch = next(pipe)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:                   # the profiler cannot trace
+        busy["reason"] = str(e)
+    else:
+        t0 = time.perf_counter()
+        try:
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.stop()
+        b_us, n_k = busy_us(prof)
+        if n_k and b_us > 0:
+            busy = {"device_busy_share": b_us / wall_us,
+                    "busy_ms": b_us / 1e3, "window_ms": wall_us / 1e3,
+                    "device_ops_per_step": n_k,
+                    # where the host's time goes (the profiler's own cost
+                    # included): the operations with the most self time
+                    "host_self_ms_top": [
+                        [e.key[:50], e.count, e.self_cpu_time_total / 1e3]
+                        for e in sorted(prof.key_averages(),
+                                        key=lambda e: -e.self_cpu_time_total)
+                        [:8]]}
+    # one more step in its two halves, host clock with a synchronise after
+    # each: the gradients of both microbatches, then the AdamW update
+    batch = next(pipe)
+    split = {}
+    t0 = time.perf_counter()
+    grads, _, _ = compute_grads(api.loss, tcfg, state["params"], batch)
+    torch.cuda.synchronize()
+    split["grads_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    adamw_update(state["params"], grads, state["opt"], tcfg.opt)
+    torch.cuda.synchronize()
+    split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
+    pipe.close()
+    del state, m, batch, prof, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, num_layers=GATE_LAYERS, dtype="float32")
+    card_cpu = gate_card_vs_cpu(cfg32, dev)
+    card_cpu["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accum_remat = gate_accum_remat(cfg32, dev)
+    accum_remat["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restart = gate_restart(dataclasses.replace(cfg, num_layers=GATE_LAYERS),
+                           dev)
+    restart["seconds"] = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"train: the training path launched an SPE kernel: {launches}")
+
+    ms = sorted(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"card": card, "model": cfg.name, "dtype": cfg.dtype,
+            "masters": "float32", "params": bounds["params"],
+            "layers": cfg.num_layers, "steps": TRAIN_STEPS,
+            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "accum": tcfg.accum, "remat": tcfg.remat,
+            "state_dtype": tcfg.opt.state_dtype, "init_s": init_s,
+            "losses": losses, "loss_falls": True,
+            "step_ms": ms[len(ms) // 2], "step_ms_min_max": [ms[0], ms[-1]],
+            "step_ms_all": step_ms,
+            "tokens_per_s": tokens / (ms[len(ms) // 2] / 1e3),
+            "step_bound_ms": bounds["step_bound_ms"],
+            "step_bound_model_ms": bounds["model_ms"],
+            "step_bound_optimizer_ms": bounds["optimizer_ms"],
+            "recompute_ms": bounds["recompute_ms"],
+            "tokens_per_s_bound": tokens / (bounds["step_bound_ms"] / 1e3),
+            "peak_allocated_bytes": peak,
+            "peak_above_start_bytes": peak - base_bytes,
+            "train_state_bytes": state_bytes, **busy, "step_split": split,
+            "gate_card_vs_cpu": card_cpu, "gate_accum_remat": accum_remat,
+            "gate_restart": restart, "spe_kernel_launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures on the card "
@@ -993,15 +1346,21 @@ def main() -> None:
              f"{kernels.launch_counts()}")
     del sess
     gc.collect()
+    torch.cuda.empty_cache()
     emit("deploy", **timed("deploy", phase_deploy))
+    train = timed("train", phase_train, dev, card)
+    emit("train", **train)
 
     path_launches = {
         "act_clip_count": {"search+execute": counts["act_clip_count"],
-                           "patterns": pat["launches"]["act_clip_count"]},
+                           "patterns": pat["launches"]["act_clip_count"],
+                           "train": train["spe_kernel_launches"][
+                               "act_clip_count"]},
         "block_sparse_matmul": {
             "search+execute": counts["block_sparse_matmul"],
             **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
-               for t, v in costs["tables"].items()}}}
+               for t, v in costs["tables"].items()},
+            "train": train["spe_kernel_launches"]["block_sparse_matmul"]}}
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
          "source": clip["source"], "replaces": clip["replaces"],

@@ -49,3 +49,41 @@ def params_to_jax(params: Any) -> Any:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def _is_packed8(x) -> bool:
+    """The JAX package's (or the port's) ``Packed8``, known by its
+    attributes, so that nothing of the JAX package is imported."""
+    return all(hasattr(x, a) for a in ("q", "s", "shape")) and \
+        not isinstance(x, (np.ndarray, torch.Tensor))
+
+
+def train_state_from_jax(state_numpy: Any, device) -> Any:
+    """A JAX train state (``init_train_state``'s tree: ``params``, ``opt``
+    with ``m`` / ``v`` and ``step``, optionally ``ef``) with its arrays as
+    numpy (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's train
+    state on ``device``. Moments in float32, bfloat16 or ``Packed8`` keep
+    their form; ``opt.step`` is a 0-d int32 tensor."""
+    from repro_torch.train.optimizer import Packed8
+    if isinstance(state_numpy, dict):
+        return {k: train_state_from_jax(v, device)
+                for k, v in state_numpy.items()}
+    if _is_packed8(state_numpy):
+        return Packed8(params_from_jax(state_numpy.q, device),
+                       params_from_jax(state_numpy.s, device),
+                       state_numpy.shape)
+    return params_from_jax(state_numpy, device)
+
+
+def train_state_to_jax(state: Any) -> Any:
+    """The port's train state -> the same tree of numpy arrays. A bfloat16
+    tensor becomes float32 (exactly; cast it back on the JAX side), a
+    ``Packed8`` a ``Packed8`` of numpy arrays (rebuild the JAX package's
+    from its ``q``, ``s`` and ``shape``)."""
+    from repro_torch.train.optimizer import Packed8
+    if isinstance(state, dict):
+        return {k: train_state_to_jax(v) for k, v in state.items()}
+    if isinstance(state, Packed8):
+        return Packed8(params_to_jax(state.q), params_to_jax(state.s),
+                       state.shape)
+    return params_to_jax(state)

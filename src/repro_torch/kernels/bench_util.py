@@ -194,3 +194,40 @@ def lm_serve_bounds(cfg, params, *, batch: int, prompt_len: int,
             "prefill_bound_ms": pre_ms, "prefill_bound_by": pre_by,
             "prefill_flops": pre_flops, "prefill_bytes": pre_bytes,
             "layer_params": layer_w, "head_params": head_w}
+
+
+def lm_train_bounds(cfg, params, *, batch: int, seq_len: int) -> dict:
+    """The least time of one AdamW train step of a dense GQA transformer
+    (``models.transformer``) over ``batch`` x ``seq_len`` tokens, from its
+    shapes, counted as ``lm_serve_bounds`` counts a prefill:
+
+    * the model's operations: 6 flops per parameter per token (2 forward, 4
+      backward; a tied embedding counts once, as the output head's product)
+      plus the causal attention, 3 x the forward's 2 * 2 * H * hd per
+      query-key pair over half the square, at the tensor-core rate for a
+      2-byte compute dtype (the float32 rate otherwise);
+    * then the optimizer's bytes: a float32 AdamW step reads p, g, m and v
+      and writes p, m and v, 28 bytes per parameter, at the memory rate.
+
+    The bound is the sum of the two phases (``step_bound_ms``). The extra
+    forward that ``remat="full"`` runs in the backward pass (the blocks
+    again, not the output head) is ``recompute_ms``, not in the bound."""
+    from repro_torch.models.common import dtype_of
+    rate = BF16_FLOPS if dtype_of(cfg.dtype).itemsize == 2 else FP32_FLOPS
+    L, S = cfg.num_layers, seq_len
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    n_params = tree_numel(params)
+    layer_w = tree_numel(params["blocks"])
+    tokens = batch * seq_len
+    attn_fwd = 2 * L * batch * H * hd * S * (S + 1)
+    model_flops = 6 * n_params * tokens + 3 * attn_fwd
+    opt_bytes = 28 * n_params
+    recompute_flops = 2 * layer_w * tokens + attn_fwd
+    model_ms = model_flops / rate * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"step_bound_ms": model_ms + opt_ms,
+            "model_ms": model_ms, "model_flops": model_flops,
+            "optimizer_ms": opt_ms, "optimizer_bytes": opt_bytes,
+            "recompute_ms": recompute_flops / rate * 1e3,
+            "recompute_flops": recompute_flops,
+            "params": n_params, "tokens": tokens}

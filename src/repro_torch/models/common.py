@@ -1,10 +1,13 @@
 """Shared model building blocks (plain functions on tensors)."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -21,7 +24,10 @@ def dense_init(gen: torch.Generator, shape, in_axis=-2, scale=1.0,
 
     Drawn from ``gen`` on the generator's device and then moved to ``device``
     (the card, unless the caller asks for ``"cpu"``), so one seed gives one
-    set of weights wherever they end up."""
+    set of weights wherever they end up. On the ``meta`` device nothing is
+    drawn or allocated: the tensor has the shape and dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[in_axis]
     std = scale / math.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=gen, device=gen.device) * std
@@ -30,6 +36,8 @@ def dense_init(gen: torch.Generator, shape, in_axis=-2, scale=1.0,
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     w = torch.randn(tuple(shape), generator=gen, device=gen.device) * 0.02
     return w.to(device=device, dtype=dtype)
 
@@ -113,6 +121,53 @@ def take_layer(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: take_layer(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unstack_layers(stacked) -> list:
+    """Every layer's tree of a stacked-parameter tree, as ``take_layer``
+    gives them (views, no copies), made by one ``unbind`` per leaf: its
+    backward is one stack of the layers' gradients, where L separate slices
+    would each scatter into a zero tensor of the full stacked size."""
+    if isinstance(stacked, dict):
+        per_key = {k: unstack_layers(v) for k, v in stacked.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(stacked.unbind(0))
+
+
+# --------------------------------------------------------------------- #
+# Rematerialisation (the JAX package's jax.checkpoint on a block)
+# --------------------------------------------------------------------- #
+# the plain products: ``jax.checkpoint_policies.dots_with_no_batch_dims_
+# saveable`` saves dot_generals without batch dimensions; a product with one
+# (``aten.bmm``: the attention's einsums, the MoE experts) is recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_fn(fn, remat):
+    """``fn`` as the backward pass sees it under ``remat``: ``None`` keeps
+    every activation it saves; ``"full"`` saves only its inputs and runs it
+    again in the backward pass; ``"dots"`` saves the outputs of its plain
+    products and recomputes the rest. The forward value is the same in all
+    three."""
+    if not remat:
+        return fn
+    if remat == "full":
+        kw = {}
+    elif remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+    else:
+        raise ValueError(f"remat must be None, 'full' or 'dots': {remat!r}")
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+    return run
 
 
 # --------------------------------------------------------------------- #

@@ -15,8 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
-                                       embed_init, rmsnorm, softmax_xent,
-                                       take_layer)
+                                       embed_init, remat_fn, rmsnorm,
+                                       softmax_xent, unstack_layers)
 from repro_torch.models.transformer import _cast, _embed, _layer_taus
 
 MIX_KEYS = ("w", "k", "v", "r", "g")
@@ -144,30 +144,38 @@ def init_state(cfg: ModelConfig, B: int, device="cuda"):
     }
 
 
-def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None):
-    """Returns (logits, new_state). state=None -> zeros (training)."""
+def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None,
+            remat=None):
+    """Returns (logits, new_state). state=None -> zeros (training). Any
+    ``remat`` checkpoints each block whole for the backward pass, as the
+    JAX package does."""
     dt = dtype_of(cfg.dtype)
     B, S = tokens.shape
     if state is None:
         state = init_state(cfg, B, device=tokens.device)
     h = _embed(params, tokens, dt)
-    att_sx, ffn_sx, S_all = [], [], []
-    for i in range(cfg.num_layers):
-        p = _cast(take_layer(params["blocks"], i), dt)
-        taus = _layer_taus(sparsity, i)
+
+    def block(p, h, taus, att_sx, S_i, ffn_sx):
+        p = _cast(p, dt)
         f_tau = taus.get("ffn") if taus else None
         a_tau = taus.get("attn") if taus else None
         x = rmsnorm(h, p["ln1"], cfg.norm_eps)
         x = act_clip(x, a_tau)
-        y, att_st = _time_mix(p, x, cfg, {"sx": state["att_sx"][i],
-                                          "S": state["S"][i]})
+        y, att_st = _time_mix(p, x, cfg, {"sx": att_sx, "S": S_i})
         h = h + y
         x = rmsnorm(h, p["ln2"], cfg.norm_eps)
-        y, ffn_st = _channel_mix(p, x, {"sx": state["ffn_sx"][i]}, f_tau)
-        h = h + y
-        att_sx.append(att_st["sx"])
-        S_all.append(att_st["S"])
-        ffn_sx.append(ffn_st["sx"])
+        y, ffn_st = _channel_mix(p, x, {"sx": ffn_sx}, f_tau)
+        return h + y, att_st["sx"], att_st["S"], ffn_st["sx"]
+
+    block = remat_fn(block, "full" if remat else None)
+    att_sx, ffn_sx, S_all = [], [], []
+    for i, p in enumerate(unstack_layers(params["blocks"])):
+        h, a_sx, S_i, f_sx = block(p, h, _layer_taus(sparsity, i),
+                                   state["att_sx"][i], state["S"][i],
+                                   state["ffn_sx"][i])
+        att_sx.append(a_sx)
+        S_all.append(S_i)
+        ffn_sx.append(f_sx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = h @ params["lm_head"].to(dt)            # untied, whatever cfg says
     new_state = {"att_sx": torch.stack(att_sx), "ffn_sx": torch.stack(ffn_sx),
@@ -175,9 +183,9 @@ def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None):
     return logits, new_state
 
 
-def loss(cfg: ModelConfig, params, batch, *, sparsity=None):
+def loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):
     tokens = batch["tokens"]
-    logits, _ = forward(cfg, params, tokens, sparsity=sparsity)
+    logits, _ = forward(cfg, params, tokens, sparsity=sparsity, remat=remat)
     l = softmax_xent(logits[:, :-1], tokens[:, 1:]).mean()
     return l, {"xent": l}
 

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
-                                       embed_init, rmsnorm, softmax_xent,
-                                       take_layer)
+                                       embed_init, remat_fn, rmsnorm,
+                                       softmax_xent, take_layer,
+                                       unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -162,10 +163,13 @@ def _shared_attn(cfg, params, h, h0, rot, k_buf=None, v_buf=None,
     return h + z + o + y, kv
 
 
-def forward(cfg: ModelConfig, params, tokens, *, sparsity=None,
+def forward(cfg: ModelConfig, params, tokens, *, sparsity=None, remat=None,
             return_state=False, S_max: int = 0):
     """Logits (B,S,V); with ``return_state`` also the decode state after the
-    last token (mamba conv/ssm finals + windowed shared-attention KV)."""
+    last token (mamba conv/ssm finals + windowed shared-attention KV).
+    Any ``remat`` checkpoints each mamba layer whole for the backward pass
+    (the shared attention block is not checkpointed), as the JAX package
+    does."""
     dt = dtype_of(cfg.dtype)
     B, S = tokens.shape
     h = tfm._embed(params, tokens, dt)
@@ -173,6 +177,15 @@ def forward(cfg: ModelConfig, params, tokens, *, sparsity=None,
     rot = tfm.rope(cfg, torch.arange(S, device=tokens.device))
     k = cfg.hybrid_attn_every
     eff = min(S_max or S, 4096)
+
+    def mamba_step(p, h, f_tau):
+        p = tfm._cast(p, dt)
+        y, st = mamba_block(p, rmsnorm(h, p["ln"], cfg.norm_eps), cfg,
+                            act_tau=f_tau)
+        return h + y, st["conv"], st["ssm"]
+
+    mamba_step = remat_fn(mamba_step, "full" if remat else None)
+    layers = unstack_layers(params["mamba"])
     convs, ssms, attn_kv = [], [], []
     for (lo, hi) in _groups(cfg):
         if k:
@@ -180,13 +193,10 @@ def forward(cfg: ModelConfig, params, tokens, *, sparsity=None,
                                  return_kv_eff=eff if return_state else 0)
             attn_kv.append(kv)
         for i in range(lo, hi):
-            p = tfm._cast(take_layer(params["mamba"], i), dt)
             f_tau = (tfm._layer_taus(sparsity, i) or {}).get("ffn")
-            y, st = mamba_block(p, rmsnorm(h, p["ln"], cfg.norm_eps), cfg,
-                                act_tau=f_tau)
-            h = h + y
-            convs.append(st["conv"])
-            ssms.append(st["ssm"])
+            h, conv, ssm_st = mamba_step(layers[i], h, f_tau)
+            convs.append(conv)
+            ssms.append(ssm_st)
     logits = tfm.unembed(cfg, params,
                          rmsnorm(h, params["final_norm"], cfg.norm_eps))
     if not return_state:
@@ -210,9 +220,9 @@ def prefill(cfg: ModelConfig, params, tokens, S_max: int, **kw):
     return logits[:, -1:], state
 
 
-def loss(cfg: ModelConfig, params, batch, *, sparsity=None):
+def loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens, sparsity=sparsity)
+    logits = forward(cfg, params, tokens, sparsity=sparsity, remat=remat)
     l = softmax_xent(logits[:, :-1], tokens[:, 1:]).mean()
     return l, {"xent": l}
 

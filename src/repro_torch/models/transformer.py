@@ -13,6 +13,7 @@ given.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
@@ -23,8 +24,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import blockwise_attention, decode_attention
 from repro_torch.models.common import (act_clip, activation, dense_init,
-                                       dtype_of, embed_init, rmsnorm, rope_table,
-                                       rotate, softmax_xent, take_layer)
+                                       dtype_of, embed_init, remat_fn,
+                                       rmsnorm, rope_table, rotate,
+                                       softmax_xent, take_layer,
+                                       unstack_layers)
 
 Params = Dict[str, Any]
 
@@ -278,22 +281,25 @@ def _block(cfg: ModelConfig, p, h, rot, taus=None, *, causal, enc_kv=None):
 
 
 def _run_blocks(cfg: ModelConfig, h, stacked, L, rot, sparsity=None, *,
-                causal=True):
+                causal=True, remat=None):
+    """The L stacked blocks in turn; ``remat`` (None | "full" | "dots")
+    checkpoints each block for the backward pass, as the JAX package's
+    ``jax.checkpoint`` of its scanned block does."""
+    block = remat_fn(functools.partial(_block, cfg), remat)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(L):
-        h, a = _block(cfg, take_layer(stacked, i), h, rot,
-                      _layer_taus(sparsity, i), causal=causal)
+    for i, p in enumerate(unstack_layers(stacked)[:L]):
+        h, a = block(p, h, rot, _layer_taus(sparsity, i), causal=causal)
         aux = aux + a
     return h, aux
 
 
-def encode(cfg: ModelConfig, params, frames):
+def encode(cfg: ModelConfig, params, frames, *, remat=None):
     """Whisper encoder: frames (B, F, d) precomputed by the stub frontend."""
     dt = dtype_of(cfg.dtype)
     h = frames.to(dt) + params["enc_pos"][None].to(dt)
     positions = torch.arange(frames.shape[1], device=frames.device)
     h, _ = _run_blocks(cfg, h, params["enc_blocks"], cfg.enc_layers,
-                       rope(cfg, positions), causal=False)
+                       rope(cfg, positions), causal=False, remat=remat)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -302,11 +308,12 @@ def _dec_pos(params, positions, dt):
 
 
 def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
-               sparsity=None, q_offset=0
+               sparsity=None, q_offset=0, remat=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden, logits, aux_loss). tokens: (B, S) integer.
     ``sparsity``: optional per-layer clip thresholds, ``{"attn": (L,),
-    "ffn": (L,)}``."""
+    "ffn": (L,)}``. ``remat``: None | "full" | "dots" (the backward pass's
+    checkpointing of each block; the forward value does not change)."""
     dt = dtype_of(cfg.dtype)
     h = _embed(params, tokens, dt)
     positions = q_offset + torch.arange(tokens.shape[1], device=tokens.device)
@@ -314,22 +321,28 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
 
     if not cfg.is_encoder_decoder:
         h, aux = _run_blocks(cfg, h, params["blocks"], cfg.num_layers,
-                             rot, sparsity)
+                             rot, sparsity, remat=remat)
     else:
         assert frames is not None, "whisper needs frame embeddings"
-        enc = encode(cfg, params, frames)
+        enc = encode(cfg, params, frames, remat=remat)
         h = h + _dec_pos(params, positions, dt)
         B, F_ = enc.shape[:2]
         KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(cfg.num_layers):
-            p = take_layer(params["blocks"], i)
+
+        def layer(p, h, taus):
             # the cross K/V come from the layer's stored (float32) weights,
             # so they are float32 whatever the compute dtype
             xk = _mm(enc, p["cross"]["wk"]).reshape(B, F_, KV, hd)
             xv = _mm(enc, p["cross"]["wv"]).reshape(B, F_, KV, hd)
-            h, a = _block(cfg, p, h, rot, _layer_taus(sparsity, i),
-                          causal=True, enc_kv=(xk, xv))
+            return _block(cfg, p, h, rot, taus, causal=True,
+                          enc_kv=(xk, xv))
+
+        # the JAX package checkpoints the whole decoder layer, cross K/V
+        # included, for any remat
+        layer = remat_fn(layer, "full" if remat else None)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i, p in enumerate(unstack_layers(params["blocks"])):
+            h, a = layer(p, h, _layer_taus(sparsity, i))
             aux = aux + a
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, h)
@@ -342,14 +355,15 @@ def unembed(cfg: ModelConfig, params, h):
 
 
 # ===================================================================== #
-# Loss (+ MTP), forward value only
+# Loss (+ MTP)
 # ===================================================================== #
-def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None):
-    """Full-sequence forward; loss on S-1 shifts (+0.1 x the MTP loss)."""
+def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):
+    """Full-sequence forward; loss on S-1 shifts (+0.1 x the MTP loss).
+    ``remat`` checkpoints the blocks (encoder and MTP block too)."""
     tokens = batch["tokens"]
     frames = batch.get("frames")
     h, logits, aux = lm_forward(cfg, params, tokens, frames=frames,
-                                sparsity=sparsity)
+                                sparsity=sparsity, remat=remat)
     loss = softmax_xent(logits[:, :-1], tokens[:, 1:]).mean()
     metrics = {"xent": loss, "aux": aux}
 
@@ -360,7 +374,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None):
                        nxt_emb], dim=-1) @ params["mtp"]["proj"].to(dt)
         positions = torch.arange(z.shape[1], device=z.device)
         z, _ = _run_blocks(cfg, z, params["mtp"]["block"], cfg.mtp_depth,
-                           rope(cfg, positions))
+                           rope(cfg, positions), remat=remat)
         z = rmsnorm(z, params["final_norm"], cfg.norm_eps)
         mtp_logits = unembed(cfg, params, z[:, :-2])
         mtp_loss = softmax_xent(mtp_logits, tokens[:, 2:]).mean()
