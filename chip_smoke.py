@@ -43,8 +43,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
            masters, accum 2, remat "full"): step times, tokens/s, peak
            memory, busy share, the step's bound; gates: the loss falls, card
            == CPU (float32, depth 2), accum 2 == 1 and remat none == full ==
-           dots, restart bitwise deterministic (int8 state, deterministic
-           algorithms), no SPE kernel launched
+           dots, no SPE kernel launched
+  distributed  an NCCL process group of one rank (a FileStore in a temp
+           directory) and a (1, 1) ("data", "model") DeviceMesh: gates
+           compressed_psum == ef_quantize and a one-stage 8-microbatch
+           make_pipelined_fn == the sequential loop, bit for bit; then the
+           train phase's Qwen3-0.6B step with its state laid out as DTensors
+           by param_specs under use_sharding (1 warm-up and 4 timed steps, one
+           profiled), beside the train phase's numbers; one dry-run cell
+           (qwen3-0.6b train_4k pod2x16x16, fake backend, its own process):
+           bytes per rank; no SPE kernel launched
+  deterministic  a process of its own, with CUBLAS_WORKSPACE_CONFIG=:4096:8
+           and torch.use_deterministic_algorithms: the restart gate (int8
+           state, a crash and a restore give the same losses and state bit
+           for bit) and sharded == unsharded training (2 steps of the train
+           phase's full-depth step from one initial state: losses and the
+           final state bit for bit); no other phase runs under that setting
 
 Times: ``ms`` is the device time of the call the main path makes
 (``ops.act_clip`` / ``SparseWeight.matmul`` on the operands the main path
@@ -60,7 +74,7 @@ tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around each of ``kernel_costs``' two tables,
-``patterns``, ``serve`` with ``fleet``, and ``train``. The card's name and power limit
+``patterns``, ``serve`` with ``fleet``, ``train`` and ``distributed``. The card's name and power limit
 and then one line listing every kernel, with its launches on each path, come
 before the last line, which is the device record. Each phase's seconds are
 in the ``done`` line. There is no CPU path: without a card the script exits
@@ -78,14 +92,10 @@ import sys
 import tempfile
 import time
 
-# the train phase's restart gate runs under torch.use_deterministic_algorithms,
-# which needs cuBLAS held to a fixed workspace from its first handle on: eight
-# buffers of 4 MiB (every earlier phase's products run under it too)
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import numpy as np
+import torch
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 RESNET18_IMG_RES = 224
 CALIB_BATCH = 8
 MAX_M = 25088
@@ -948,6 +958,46 @@ def phase_deploy() -> dict:
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 256
 GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 64     # gates 2-4: depth cut to 2
+DIST_STEPS = 4                      # timed sharded steps, after one warm-up
+
+
+def train_tcfg():
+    """The train phase's recipe: AdamW (float32 state), accum 2, remat
+    "full"; the distributed phase and the sharded-equality gate run it too."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import TrainConfig
+    return TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2,
+                                     total_steps=16), accum=2, remat="full")
+
+
+def _profile_step(step) -> dict:
+    """The device's busy share over one ``step()`` (torch.profiler), its
+    device operations, and the host operations with the most self time (the
+    profiler's own cost included), or "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:                   # the profiler cannot trace
+        return {"device_busy_share": "not measured", "reason": str(e)}
+    t0 = time.perf_counter()
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.stop()
+    b_us, n_k = busy_us(prof)
+    if not n_k or b_us <= 0:
+        return {"device_busy_share": "not measured",
+                "reason": "the trace holds no device time"}
+    return {"device_busy_share": b_us / wall_us, "busy_ms": b_us / 1e3,
+            "window_ms": wall_us / 1e3, "device_ops_per_step": n_k,
+            "host_self_ms_top": [
+                [e.key[:50], e.count, e.self_cpu_time_total / 1e3]
+                for e in sorted(prof.key_averages(),
+                                key=lambda e: -e.self_cpu_time_total)[:8]]}
 
 
 def _to(tree, dev):
@@ -1154,23 +1204,21 @@ def phase_train(dev, card) -> dict:
     8 AdamW steps of 8 x 256 tokens (accum 2, remat "full", float32 state)
     through ``make_train_step`` fed by ``DataPipeline(prefetch=2)``; then
     the gates (module docstring). Every gate fails the script."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.kernels.bench_util import lm_train_bounds
     from repro_torch.models import build_model
-    from repro_torch.train.optimizer import OptConfig, adamw_update
-    from repro_torch.train.train_loop import (TrainConfig, compute_grads,
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_loop import (compute_grads,
                                               init_train_state,
                                               make_train_step)
 
     kernels.reset_launch_counts()
     cfg = get_config(TRAIN_ARCH)
     api = build_model(cfg)
-    tcfg = TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2,
-                                     total_steps=16), accum=2, remat="full")
+    tcfg = train_tcfg()
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1200,35 +1248,10 @@ def phase_train(dev, card) -> dict:
         fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: "
              f"{losses}")
 
-    # the device's busy share over one more step
-    busy = {"device_busy_share": "not measured"}
+    # the device's busy share over one more step (the step updates the
+    # state's tensors in place)
     batch = next(pipe)
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    try:
-        prof.start()
-    except RuntimeError as e:                   # the profiler cannot trace
-        busy["reason"] = str(e)
-    else:
-        t0 = time.perf_counter()
-        try:
-            state, m = step_fn(state, batch)
-            torch.cuda.synchronize()
-        finally:
-            wall_us = (time.perf_counter() - t0) * 1e6
-            prof.stop()
-        b_us, n_k = busy_us(prof)
-        if n_k and b_us > 0:
-            busy = {"device_busy_share": b_us / wall_us,
-                    "busy_ms": b_us / 1e3, "window_ms": wall_us / 1e3,
-                    "device_ops_per_step": n_k,
-                    # where the host's time goes (the profiler's own cost
-                    # included): the operations with the most self time
-                    "host_self_ms_top": [
-                        [e.key[:50], e.count, e.self_cpu_time_total / 1e3]
-                        for e in sorted(prof.key_averages(),
-                                        key=lambda e: -e.self_cpu_time_total)
-                        [:8]]}
+    busy = _profile_step(lambda: step_fn(state, batch))
     # one more step in its two halves, host clock with a synchronise after
     # each: the gradients of both microbatches, then the AdamW update
     batch = next(pipe)
@@ -1242,7 +1265,7 @@ def phase_train(dev, card) -> dict:
     torch.cuda.synchronize()
     split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
     pipe.close()
-    del state, m, batch, prof, grads
+    del state, m, batch, grads
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1253,10 +1276,6 @@ def phase_train(dev, card) -> dict:
     t0 = time.perf_counter()
     accum_remat = gate_accum_remat(cfg32, dev)
     accum_remat["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    restart = gate_restart(dataclasses.replace(cfg, num_layers=GATE_LAYERS),
-                           dev)
-    restart["seconds"] = time.perf_counter() - t0
     launches = kernels.launch_counts()
     if any(launches.values()):
         fail(f"train: the training path launched an SPE kernel: {launches}")
@@ -1282,7 +1301,274 @@ def phase_train(dev, card) -> dict:
             "peak_above_start_bytes": peak - base_bytes,
             "train_state_bytes": state_bytes, **busy, "step_split": split,
             "gate_card_vs_cpu": card_cpu, "gate_accum_remat": accum_remat,
-            "gate_restart": restart, "spe_kernel_launches": launches}
+            "spe_kernel_launches": launches}
+
+
+def _nccl_world(tmp: str) -> None:
+    """An NCCL process group of one rank from a FileStore in ``tmp``: no
+    port to collide on, no network."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+
+
+def gate_compressed_psum(mesh, dev) -> dict:
+    """``compressed_psum`` over the mesh's 'data' dimension (NCCL, one
+    rank) equals ``ef_quantize`` of its input bit for bit: the mean is the
+    dequantised value, the error the new error."""
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     ef_quantize)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    x = torch.randn((1024, 3072), generator=g, device=dev)
+    err = torch.randn((1024, 3072), generator=g, device=dev) * 1e-3
+    mean, new_err = compressed_psum(x, err, mesh, axis="data")
+    deq, ref_err = ef_quantize(x, err)
+    if not (_bits_equal(mean, deq) and _bits_equal(new_err, ref_err)):
+        fail("distributed: compressed_psum on one rank differs from "
+             "ef_quantize")
+    return {"shape": list(x.shape), "bitwise_equal": True,
+            "quantisation_max_abs_err": float((mean - (x + err)).abs().max())}
+
+
+def gate_pipeline(dev) -> dict:
+    """``make_pipelined_fn`` with one stage and 8 microbatches on a
+    ("stage",) mesh equals the stage function applied to each microbatch in
+    turn, bit for bit (the hop-free schedule and the final broadcast)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.pipeline import make_pipelined_fn
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    W = torch.randn((1024, 1024), generator=g, device=dev) / 32
+    x = torch.randn((8, 16, 1024), generator=g, device=dev)
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    y = make_pipelined_fn(stage, mesh, n_stages=1, n_microbatches=8)(W, x)
+    seq = torch.stack([stage(W, x[i]) for i in range(8)])
+    if not _bits_equal(y, seq):
+        fail("distributed: the one-stage pipeline differs from the "
+             "sequential loop")
+    return {"stages": 1, "microbatches": 8, "shape": list(y.shape),
+            "bitwise_equal": True}
+
+
+def dryrun_cell() -> dict:
+    """One dry-run cell (qwen3-0.6b, train_4k, pod2x16x16) in a process of
+    its own on the ``fake`` backend, away from the card: the launch path's
+    smoke test (its bytes per rank are shape arithmetic, not a
+    measurement of the card)."""
+    key = "qwen3-0.6b|train_4k|pod2x16x16"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dryrun_torch.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-0.6b", "--shape", "train_4k", "--multi-pod", "--out",
+             out], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES=""))
+        if r.returncode != 0 or not os.path.exists(out):
+            fail(f"distributed: the dry run failed: {r.stderr[-2000:]}")
+        with open(out) as f:
+            rec = json.load(f)[key]
+    if rec.get("status") != "ok":
+        fail(f"distributed: dry-run cell {key}: {rec}")
+    return {k: rec[k] for k in ("key", "chips", "bytes_per_rank",
+                                "arg_bytes", "compute_s", "memory_s",
+                                "collective_s", "dominant", "fits_hbm",
+                                "layout_s")}
+
+
+def phase_distributed(dev, card, train) -> dict:
+    """The distribution layer on the card at world size 1 (module
+    docstring): NCCL gates, then the train phase's full-width Qwen3-0.6B
+    step with its state and batches laid out as DTensors by ``param_specs``
+    / ``batch_spec`` on the (1, 1) mesh under ``use_sharding``, beside the
+    train phase's own numbers, so that DTensor's host cost per step reads
+    off; then one dry-run cell."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.distributed.ctx import use_sharding
+    from repro_torch.distributed.sharding import (batch_spec, distribute,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step)
+
+    kernels.reset_launch_counts()
+    cfg = get_config(TRAIN_ARCH)
+    api = build_model(cfg)
+    tcfg = train_tcfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        _nccl_world(tmp)
+        try:
+            mesh = make_host_mesh(model=1, device="cuda")
+            psum = gate_compressed_psum(mesh, dev)
+            pipeline = gate_pipeline(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            state = init_train_state(api.init, tcfg, gen, device=dev)
+            state = distribute(state, mesh, param_specs(mesh, state))
+            pipe = DataPipeline(cfg, ShapeConfig("train", TRAIN_SEQ,
+                                                 TRAIN_BATCH, "train"),
+                                seed=0, device=dev, prefetch=2)
+
+            def batch():
+                b = next(pipe)
+                return distribute(b, mesh, batch_spec(mesh, b))
+
+            step_fn = make_train_step(api.loss, tcfg)
+            losses, step_ms = [], []
+            with use_sharding(mesh):
+                for i in range(1 + DIST_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step_fn(state, batch())
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(m["loss"]))
+                b = batch()
+                busy = _profile_step(lambda: step_fn(state, b))
+            peak = torch.cuda.max_memory_allocated()
+            pipe.close()
+            kinds = sorted({type(x).__name__ for _, x, _ in
+                            _leaf_pairs(state, state)})
+            del state, m, b
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or kinds != ["DTensor"]:
+        fail(f"distributed: losses {losses}, state leaves {kinds}")
+    t0 = time.perf_counter()
+    dry = dryrun_cell()
+    dry["seconds"] = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"distributed: the path launched an SPE kernel: {launches}")
+    ms = sorted(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = ms[len(ms) // 2]
+    return {"card": card, "world": 1, "backend": "nccl",
+            "mesh": {"data": 1, "model": 1}, "model": cfg.name,
+            "state_leaves": kinds, "gate_compressed_psum": psum,
+            "gate_pipeline": pipeline, "warmup_ms": step_ms[0],
+            "losses": losses,
+            "losses_equal_train_phase": losses == train["losses"][:len(losses)],
+            "step_ms": med, "step_ms_min_max": [ms[0], ms[-1]],
+            "step_ms_all": step_ms[1:], "tokens_per_s": tokens / (med / 1e3),
+            "peak_allocated_bytes": peak, **busy,
+            "unsharded": {k: train.get(k) for k in (
+                "step_ms", "step_ms_min_max", "tokens_per_s",
+                "device_ops_per_step", "busy_ms", "peak_allocated_bytes")},
+            "dtensor_host_ms_per_step": med - train["step_ms"],
+            "dryrun": dry, "spe_kernel_launches": launches}
+
+
+def gate_sharded_equality(cfg, dev) -> dict:
+    """The train phase's step (Qwen3-0.6B at full width and depth, bf16 on
+    float32 masters, accum 2, remat "full", 8 x 256 tokens), 2 steps from
+    one initial state: unsharded, and with state and batches laid out as
+    DTensors on a (1, 1) NCCL mesh under ``use_sharding``. The losses and
+    the final state (parameters, moments, step) must be equal bit for bit.
+    Needs deterministic algorithms (the embedding backward and the gather
+    of ``softmax_xent`` accumulate with atomics otherwise)."""
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.ctx import use_sharding
+    from repro_torch.distributed.sharding import (batch_spec, distribute,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step)
+    api = build_model(cfg)
+    tcfg = train_tcfg()
+    step_fn = make_train_step(api.loss, tcfg)
+    batches = [lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i,
+                        device=dev) for i in range(2)]
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return init_train_state(api.init, tcfg, gen, device=dev)
+
+    ref, ref_losses = fresh(), []
+    for b in batches:
+        ref, m = step_fn(ref, b)
+        ref_losses.append(float(m["loss"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        _nccl_world(tmp)
+        try:
+            mesh = make_host_mesh(model=1, device="cuda")
+            st = fresh()
+            st = distribute(st, mesh, param_specs(mesh, st))
+            losses = []
+            with use_sharding(mesh):
+                for b in batches:
+                    st, m = step_fn(st, distribute(b, mesh,
+                                                   batch_spec(mesh, b)))
+                    losses.append(float(m["loss"]))
+            if losses != ref_losses:
+                fail(f"deterministic: sharded losses {losses} != unsharded "
+                     f"{ref_losses}")
+            n = 0
+            for path, a, b in _leaf_pairs(ref, st):
+                if not _bits_equal(a, b.full_tensor()):
+                    fail(f"deterministic: sharded state differs at {path}")
+                n += 1
+        finally:
+            dist.destroy_process_group()
+    return {"layers": cfg.num_layers, "steps": 2, "losses": losses,
+            "losses_bitwise_equal": True, "state_leaves_bitwise_equal": n}
+
+
+def deterministic_main() -> None:
+    """The gates that need deterministic algorithms, run by ``main`` in a
+    process of its own with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS
+    held to a fixed workspace from its first handle on), so that no other
+    phase runs under it. Prints one ``DETERMINISTIC {...}`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        fail("deterministic gates need CUBLAS_WORKSPACE_CONFIG=:4096:8")
+    torch.use_deterministic_algorithms(True)
+    dev = resolve_device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    restart = gate_restart(dataclasses.replace(cfg, num_layers=GATE_LAYERS),
+                           dev)
+    restart["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = gate_sharded_equality(cfg, dev)
+    sharded["seconds"] = time.perf_counter() - t0
+    print("DETERMINISTIC " + json.dumps({
+        "cublas_workspace_config": os.environ["CUBLAS_WORKSPACE_CONFIG"],
+        "gate_restart": restart, "gate_sharded_equality": sharded}),
+        flush=True)
+
+
+def phase_deterministic() -> dict:
+    """``deterministic_main`` in a subprocess; its failure fails the
+    script."""
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--deterministic-gates"],
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("DETERMINISTIC ")]
+    if r.returncode != 0 or not lines:
+        fail(f"deterministic gates (exit {r.returncode}): "
+             f"{r.stderr[-3000:]}")
+    return json.loads(lines[-1][len("DETERMINISTIC "):])
 
 
 def main() -> None:
@@ -1299,7 +1585,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--costs-out", default=None,
                     help="also write the main-path decode-cost table here")
+    ap.add_argument("--deterministic-gates", action="store_true",
+                    help="run only the deterministic gates (the script "
+                         "starts itself so in a subprocess)")
     args = ap.parse_args()
+    if args.deterministic_gates:
+        deterministic_main()
+        return
 
     t_start = time.perf_counter()
     phase_s = {}
@@ -1350,17 +1642,25 @@ def main() -> None:
     emit("deploy", **timed("deploy", phase_deploy))
     train = timed("train", phase_train, dev, card)
     emit("train", **train)
+    dist_ = timed("distributed", phase_distributed, dev, card, train)
+    emit("distributed", **dist_)
+    emit("deterministic", card=card,
+         **timed("deterministic", phase_deterministic))
 
     path_launches = {
         "act_clip_count": {"search+execute": counts["act_clip_count"],
                            "patterns": pat["launches"]["act_clip_count"],
                            "train": train["spe_kernel_launches"][
+                               "act_clip_count"],
+                           "distributed": dist_["spe_kernel_launches"][
                                "act_clip_count"]},
         "block_sparse_matmul": {
             "search+execute": counts["block_sparse_matmul"],
             **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
                for t, v in costs["tables"].items()},
-            "train": train["spe_kernel_launches"]["block_sparse_matmul"]}}
+            "train": train["spe_kernel_launches"]["block_sparse_matmul"],
+            "distributed": dist_["spe_kernel_launches"][
+                "block_sparse_matmul"]}}
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
          "source": clip["source"], "replaces": clip["replaces"],

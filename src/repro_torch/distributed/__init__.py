@@ -1,3 +1,3 @@
-"""Distributed optimisation. Only the numerics of the int8 error-feedback
-gradient compression are here so far; the collectives themselves wait for
-the distribution slice."""
+"""Distribution on ``torch.distributed``: sharding rules and the logical-axis
+context (DTensor placements on a DeviceMesh), the GPipe pipeline, and the
+compressed gradient all-reduce."""

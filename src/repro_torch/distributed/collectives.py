@@ -1,10 +1,10 @@
-"""The numerics of the int8 + error-feedback gradient compression.
+"""Distributed-optimization collectives: int8 + error-feedback gradient
+compression.
 
 Error feedback keeps the quantization bias out of the trajectory (EF-SGD
 style): e_{t+1} = x_t + e_t - Q^{-1}(Q(x_t + e_t)). The train step applies
-these numerics to its gradients (``TrainConfig.compress_grads``); the
-all-reduce that would move the int8 payload between devices
-(``compressed_psum`` in the JAX package) belongs to the distribution slice.
+the numerics to its gradients (``TrainConfig.compress_grads``);
+``compressed_psum`` is the all-reduce over a mesh dimension.
 """
 from __future__ import annotations
 
@@ -36,3 +36,23 @@ def ef_quantize(x: torch.Tensor, err: torch.Tensor, block: int = 256):
     q, s, shape = quantize_int8(y, block)
     deq = dequantize_int8(q, s, shape)
     return deq, y - deq
+
+
+def compressed_psum(x: torch.Tensor, err: torch.Tensor, mesh,
+                    axis: str = "data", block: int = 256):
+    """Mean-all-reduce of each rank's contribution with int8 quantisation +
+    error feedback over the ``axis`` dimension of ``mesh``.
+
+    x, err: this rank's local gradient and error (row i of the reference's
+    stacked (n, *shape) inputs). Returns (mean, new_err): the mean, the same
+    on every rank, and this rank's new error. What enters the all-reduce is
+    the dequantised float32 value (exactly the int8-representable payload
+    q * s), as the reference's ``psum`` sums it; neither package moves int8
+    over the wire.
+    """
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    deq, new_err = ef_quantize(x, err, block)
+    total = deq.clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total / dist.get_world_size(group), new_err

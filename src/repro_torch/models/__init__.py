@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
 @dataclass
@@ -75,6 +75,38 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         decode_step=functools.partial(tfm.decode_step, cfg),
         init_cache=functools.partial(tfm.init_cache, cfg),
         read_in_float32=tfm.READ_IN_FLOAT32)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Meta-device stand-ins for every model input of a cell (shapes and
+    dtypes, nothing allocated): the reference's ``ShapeDtypeStruct``s, with
+    its int32 as the port's int64 and bfloat16 as bfloat16.
+
+    train  -> {'batch': {'tokens': (B, S)}} (+frames for audio; images and
+              labels for cnn)
+    prefill-> {'batch': {'tokens': (B, S)}} (+frames)
+    decode -> {'token': (B, 1), 'cache': <tree>}    (cache of size S)
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def sds(sh, dt=torch.int64):
+        return torch.empty(sh, dtype=dt, device="meta")
+
+    if cfg.family == "cnn":
+        return {"batch": {"images": sds((B, cfg.img_res, cfg.img_res, 3),
+                                        torch.bfloat16),
+                          "labels": sds((B,))}}
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sds((B, S))}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = sds((B, cfg.num_frames, cfg.d_model),
+                                  torch.bfloat16)
+        return {"batch": batch}
+
+    # decode: one new token against a populated cache of logical length S
+    cache = build_model(cfg).init_cache(B, S, device="meta")
+    return {"token": sds((B, 1)), "cache": cache}
 
 
 def serving_params(api: ModelAPI, params, device):

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.ctx import shard
+
 NEG_INF = -1e30
 
 
@@ -109,13 +111,19 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     blocks = _band_blocks(nkb, block_k, q_offset, Sq, causal, window) \
         if impl == "banded" else range(nkb)
 
-    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=dev)
+    # the online-softmax carry and each score block stay batch-sharded under
+    # a sharding context (the reference's constraints on its scan carry)
+    def _c(x):
+        return shard(x, "batch", "kv_heads", *([None] * (x.ndim - 2)))
+
+    m = _c(torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev))
+    l = _c(torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev))
+    acc = _c(torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=dev))
     for j in blocks:
         kj = k[:, j * block_k:(j + 1) * block_k]
         vj = v[:, j * block_k:(j + 1) * block_k]
         s = torch.einsum("bqkgd,bskd->bkgqs", qq, kj.to(torch.float32))
+        s = shard(s, "batch", "kv_heads", None, None, None)
         k_pos = j * block_k + torch.arange(block_k, device=dev)
         bias = _mask_bias(q_pos, k_pos, causal, window)                 # (Sq, bk)
         if kv_len is not None:
@@ -125,10 +133,10 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + \
-            torch.einsum("bkgqs,bskd->bkgqd", p, vj.to(torch.float32))
-        m = m_new
+        l = _c(l * corr + p.sum(dim=-1))
+        acc = _c(acc * corr[..., None] +
+                 torch.einsum("bkgqs,bskd->bkgqd", p, vj.to(torch.float32)))
+        m = _c(m_new)
     o = acc / torch.clamp(l, min=1e-30)[..., None]            # (B,KV,G,Sq,Dv)
     o = o.movedim(3, 1).reshape(B, Sq, H, Dv)
     return o.to(q.dtype)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
                                        embed_init, remat_fn, rmsnorm,
                                        softmax_xent, unstack_layers)
@@ -125,6 +126,7 @@ def _channel_mix(p, x, state, act_tau=None):
     xk = act_clip(x + dx * p["cm_mu_k"], act_tau)
     xr = x + dx * p["cm_mu_r"]
     kk = torch.relu(xk @ p["cm_wk"]).square()
+    kk = shard(kk, "batch", None, "ff")
     out = torch.sigmoid(xr @ p["cm_wr"]) * (act_clip(kk, act_tau) @ p["cm_wv"])
     return out, {"sx": x[:, -1]}
 
@@ -154,6 +156,7 @@ def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None,
     if state is None:
         state = init_state(cfg, B, device=tokens.device)
     h = _embed(params, tokens, dt)
+    h = shard(h, "batch", None, "embed")
 
     def block(p, h, taus, att_sx, S_i, ffn_sx):
         p = _cast(p, dt)
@@ -178,6 +181,7 @@ def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None,
         ffn_sx.append(f_sx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = h @ params["lm_head"].to(dt)            # untied, whatever cfg says
+    logits = shard(logits, "batch", None, "vocab")
     new_state = {"att_sx": torch.stack(att_sx), "ffn_sx": torch.stack(ffn_sx),
                  "S": torch.stack(S_all), "pos": state["pos"] + S}
     return logits, new_state

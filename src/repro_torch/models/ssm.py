@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
                                        embed_init, remat_fn, rmsnorm,
@@ -101,6 +102,7 @@ def mamba_block(p, x, cfg: ModelConfig, state=None, act_tau=None):
     y = y + p["D"][:, None] * xs.to(f32)
     y = y.reshape(B, S, d_in).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    y = shard(y, "batch", None, "ff")
     out = y @ p["out_proj"]
     return out, {"conv": new_conv, "ssm": Hst}
 
@@ -173,6 +175,7 @@ def forward(cfg: ModelConfig, params, tokens, *, sparsity=None, remat=None,
     dt = dtype_of(cfg.dtype)
     B, S = tokens.shape
     h = tfm._embed(params, tokens, dt)
+    h = shard(h, "batch", None, "embed")
     h0 = h
     rot = tfm.rope(cfg, torch.arange(S, device=tokens.device))
     k = cfg.hybrid_attn_every
@@ -197,6 +200,7 @@ def forward(cfg: ModelConfig, params, tokens, *, sparsity=None, remat=None,
             h, conv, ssm_st = mamba_step(layers[i], h, f_tau)
             convs.append(conv)
             ssms.append(ssm_st)
+    # tfm.unembed constrains the logits to ("batch", None, "vocab")
     logits = tfm.unembed(cfg, params,
                          rmsnorm(h, params["final_norm"], cfg.norm_eps))
     if not return_state:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import shard
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import blockwise_attention, decode_attention
 from repro_torch.models.common import (act_clip, activation, dense_init,
@@ -229,13 +230,15 @@ def _mla_qkv(p, h, cfg: ModelConfig, rot):
 
 
 def attention_block(p, h, cfg: ModelConfig, rot, *, causal=True,
-                    kv_override=None):
+                    attn_impl="blockwise_full", kv_override=None):
     """Self/cross attention sublayer (pre-norm residual outside)."""
     B, S, _ = h.shape
     if cfg.mla is not None and kv_override is None:
         q, k, v, _, _ = _mla_qkv(p, h, cfg, rot)
-        o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window)
-        return o.reshape(B, S, -1) @ p["wo"]
+        o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window,
+                                impl=attn_impl)
+        o = shard(o.reshape(B, S, -1), "batch", None, "heads")
+        return o @ p["wo"]
     if kv_override is not None:                          # cross attention
         xk, xv = kv_override
         H, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -243,8 +246,11 @@ def attention_block(p, h, cfg: ModelConfig, rot, *, causal=True,
         o = blockwise_attention(q, xk, xv, causal=False)
         return o.reshape(B, S, -1) @ p["wo"]
     q, k, v = _gqa_qkv(p, h, cfg, rot)
-    o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window)
-    return o.reshape(B, S, -1) @ p["wo"]
+    q = shard(q, "batch", None, "heads", None)
+    o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window,
+                            impl=attn_impl)
+    o = shard(o.reshape(B, S, -1), "batch", None, "heads")
+    return o @ p["wo"]
 
 
 def ffn_block(p, h, cfg: ModelConfig, act_tau=None):
@@ -256,6 +262,7 @@ def ffn_block(p, h, cfg: ModelConfig, act_tau=None):
     act = activation(cfg.act)
     h_in = act_clip(h, act_tau)
     g = act(h_in @ p["w_gate"]) * (h_in @ p["w_up"])
+    g = shard(g, "batch", None, "ff")
     g = act_clip(g, act_tau)
     return g @ p["w_down"], 0.0
 
@@ -263,14 +270,17 @@ def ffn_block(p, h, cfg: ModelConfig, act_tau=None):
 # ===================================================================== #
 # Forward (train / prefill share this; a loop over stacked layers)
 # ===================================================================== #
-def _block(cfg: ModelConfig, p, h, rot, taus=None, *, causal, enc_kv=None):
+def _block(cfg: ModelConfig, p, h, rot, taus=None, *, causal,
+           attn_impl="blockwise_full", enc_kv=None):
     """One pre-norm block; ``p`` is one layer's slice (cast here)."""
     p = _cast(p, h.dtype)
     a_tau = taus.get("attn") if taus else None
     f_tau = taus.get("ffn") if taus else None
+    h = shard(h, "batch", None, "embed")
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     x = act_clip(x, a_tau)
-    h = h + attention_block(p["attn"], x, cfg, rot, causal=causal)
+    h = h + attention_block(p["attn"], x, cfg, rot, causal=causal,
+                            attn_impl=attn_impl)
     if enc_kv is not None:
         x = rmsnorm(h, p["ln_cross"], cfg.norm_eps)
         h = h + attention_block(p["cross"], x, cfg, rot, causal=False,
@@ -281,14 +291,15 @@ def _block(cfg: ModelConfig, p, h, rot, taus=None, *, causal, enc_kv=None):
 
 
 def _run_blocks(cfg: ModelConfig, h, stacked, L, rot, sparsity=None, *,
-                causal=True, remat=None):
+                causal=True, attn_impl="blockwise_full", remat=None):
     """The L stacked blocks in turn; ``remat`` (None | "full" | "dots")
     checkpoints each block for the backward pass, as the JAX package's
     ``jax.checkpoint`` of its scanned block does."""
     block = remat_fn(functools.partial(_block, cfg), remat)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(unstack_layers(stacked)[:L]):
-        h, a = block(p, h, rot, _layer_taus(sparsity, i), causal=causal)
+        h, a = block(p, h, rot, _layer_taus(sparsity, i), causal=causal,
+                     attn_impl=attn_impl)
         aux = aux + a
     return h, aux
 
@@ -308,20 +319,22 @@ def _dec_pos(params, positions, dt):
 
 
 def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
-               sparsity=None, q_offset=0, remat=None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               sparsity=None, attn_impl="blockwise_full", q_offset=0,
+               remat=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden, logits, aux_loss). tokens: (B, S) integer.
     ``sparsity``: optional per-layer clip thresholds, ``{"attn": (L,),
-    "ffn": (L,)}``. ``remat``: None | "full" | "dots" (the backward pass's
-    checkpointing of each block; the forward value does not change)."""
+    "ffn": (L,)}``. ``attn_impl``: ``blockwise_attention``'s ``impl``.
+    ``remat``: None | "full" | "dots" (the backward pass's checkpointing of
+    each block; the forward value does not change)."""
     dt = dtype_of(cfg.dtype)
     h = _embed(params, tokens, dt)
+    h = shard(h, "batch", None, "embed")
     positions = q_offset + torch.arange(tokens.shape[1], device=tokens.device)
     rot = rope(cfg, positions)
 
     if not cfg.is_encoder_decoder:
         h, aux = _run_blocks(cfg, h, params["blocks"], cfg.num_layers,
-                             rot, sparsity, remat=remat)
+                             rot, sparsity, attn_impl=attn_impl, remat=remat)
     else:
         assert frames is not None, "whisper needs frame embeddings"
         enc = encode(cfg, params, frames, remat=remat)
@@ -335,7 +348,7 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
             xk = _mm(enc, p["cross"]["wk"]).reshape(B, F_, KV, hd)
             xv = _mm(enc, p["cross"]["wv"]).reshape(B, F_, KV, hd)
             return _block(cfg, p, h, rot, taus, causal=True,
-                          enc_kv=(xk, xv))
+                          attn_impl=attn_impl, enc_kv=(xk, xv))
 
         # the JAX package checkpoints the whole decoder layer, cross K/V
         # included, for any remat
@@ -351,19 +364,21 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
 
 def unembed(cfg: ModelConfig, params, h):
     w = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    return shard(h @ w.to(h.dtype), "batch", None, "vocab")
 
 
 # ===================================================================== #
 # Loss (+ MTP)
 # ===================================================================== #
-def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):
+def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None,
+            attn_impl="blockwise_full", remat=None):
     """Full-sequence forward; loss on S-1 shifts (+0.1 x the MTP loss).
     ``remat`` checkpoints the blocks (encoder and MTP block too)."""
     tokens = batch["tokens"]
     frames = batch.get("frames")
     h, logits, aux = lm_forward(cfg, params, tokens, frames=frames,
-                                sparsity=sparsity, remat=remat)
+                                sparsity=sparsity, attn_impl=attn_impl,
+                                remat=remat)
     loss = softmax_xent(logits[:, :-1], tokens[:, 1:]).mean()
     metrics = {"xent": loss, "aux": aux}
 
@@ -374,7 +389,8 @@ def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):
                        nxt_emb], dim=-1) @ params["mtp"]["proj"].to(dt)
         positions = torch.arange(z.shape[1], device=z.device)
         z, _ = _run_blocks(cfg, z, params["mtp"]["block"], cfg.mtp_depth,
-                           rope(cfg, positions), remat=remat)
+                           rope(cfg, positions), attn_impl=attn_impl,
+                           remat=remat)
         z = rmsnorm(z, params["final_norm"], cfg.norm_eps)
         mtp_logits = unembed(cfg, params, z[:, :-2])
         mtp_loss = softmax_xent(mtp_logits, tokens[:, 2:]).mean()
@@ -531,7 +547,7 @@ def _to_cache(a, eff: int):
 
 
 def prefill(cfg: ModelConfig, params, tokens, S_max: int, *, frames=None,
-            sparsity=None, prompt_lens=None):
+            attn_impl="blockwise_full", sparsity=None, prompt_lens=None):
     """Run the full prompt, build the cache. Returns (last_logits, cache).
 
     ``prompt_lens`` (B,) serves a ragged batch padded on the right to the
@@ -568,13 +584,13 @@ def prefill(cfg: ModelConfig, params, tokens, S_max: int, *, frames=None,
         x = act_clip(x, a_tau)
         if cfg.mla is not None:
             q, k, v, ckv, k_rope = _mla_qkv(p["attn"], x, cfg, rot)
-            o = blockwise_attention(q, k, v, causal=True)
+            o = blockwise_attention(q, k, v, causal=True, impl=attn_impl)
             cache["ckv"][i] = _to_cache(ckv, eff)
             cache["krope"][i] = _to_cache(k_rope[:, :, 0], eff)
         else:
             q, k, v = _gqa_qkv(p["attn"], x, cfg, rot)
             o = blockwise_attention(q, k, v, causal=True,
-                                    window=cfg.attn_window)
+                                    window=cfg.attn_window, impl=attn_impl)
             cache["k"][i] = _to_cache(k, eff)
             cache["v"][i] = _to_cache(v, eff)
         h = h + o.reshape(B, S, -1) @ p["attn"]["wo"]

@@ -8,10 +8,9 @@ The failure model is the JAX package's: a device or host dies, hangs
   * ``run_resilient`` retries the step loop through injected/real failures,
     restoring from the newest checkpoint,
   * ``StepWatchdog`` flags stragglers: steps slower than k x the trailing
-    median trigger a (configurable) callback instead of stalling the job.
-
-Re-sharding a restored state onto the devices that survive
-(``elastic_remesh`` in the JAX package) belongs to the distribution slice.
+    median trigger a (configurable) callback instead of stalling the job,
+  * ``elastic_remesh`` lays a restored state out on the mesh of the ranks
+    that survive.
 """
 from __future__ import annotations
 
@@ -113,3 +112,24 @@ def run_resilient(train_step: Callable, state: Any, next_batch: Callable,
     ckpt.wait()
     report.final_loss = report.history[-1] if report.history else float("nan")
     return report
+
+
+def elastic_remesh(state: Any, new_mesh, state_shape: Any) -> Any:
+    """Re-shard a host state tree (numpy arrays or CPU tensors, as
+    ``restore_checkpoint`` gives them, the same on every rank) onto a new
+    ``DeviceMesh`` by the same rank-polymorphic rules — the 'drop a pod and
+    keep training' path. Every leaf becomes a ``DTensor`` with the
+    placements of ``param_specs(new_mesh, state_shape)`` (a ``Packed8``'s
+    ``q`` and ``s`` alike), each rank keeping its own shard of its own copy:
+    no collective runs."""
+    import torch
+    from repro_torch.distributed.sharding import distribute, param_specs
+    from repro_torch.train.optimizer import Packed8, tree_map
+
+    def to_mesh(x):
+        if isinstance(x, Packed8):
+            return Packed8(to_mesh(x.q), to_mesh(x.s), x.shape)
+        return torch.as_tensor(x).to(new_mesh.device_type)
+
+    return distribute(tree_map(to_mesh, state), new_mesh,
+                      param_specs(new_mesh, state_shape))

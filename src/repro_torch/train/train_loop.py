@@ -37,6 +37,17 @@ def _microbatch(batch, accum: int, i: int):
                 batch)
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A metric as the value every rank agrees on: the pending reduction of
+    a ``DTensor`` (a loss over a sharded batch is ``Partial``) is carried
+    out, as the reference's step returns its metrics replicated; a plain
+    tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def _value_and_grad(loss_fn, tcfg: TrainConfig, sparsity, params, batch):
     """(loss, metrics, grads) of one batch; the gradients are with respect
     to the master parameters (a parameter the loss does not reach gets
@@ -60,8 +71,9 @@ def _value_and_grad(loss_fn, tcfg: TrainConfig, sparsity, params, batch):
         return torch.zeros_like(p) if g is None else g
 
     grads = tree_map(grad_of, params)        # the order in which track ran
-    return loss.detach(), {k: torch.as_tensor(v).detach()
-                           for k, v in metrics.items()}, grads
+    return _replicated(loss.detach()), {
+        k: _replicated(torch.as_tensor(v).detach())
+        for k, v in metrics.items()}, grads
 
 
 def compute_grads(loss_fn: Callable, tcfg: TrainConfig, params, batch,

@@ -248,6 +248,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.kernels.kernel_costs, repro_torch.sim.engine\n"
         "import repro_torch.sim.faults, repro_torch.sim.slo\n"
         "import repro_torch.serve.fleet, repro_torch.deploy_run\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
+        "import repro_torch.train.checkpoint\n"
+        "import repro_torch.train.fault_tolerance, repro_torch.data.pipeline\n"
+        "import repro_torch.distributed.collectives\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.ctx\n"
+        "import repro_torch.distributed.pipeline, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -274,7 +283,8 @@ def test_no_jax_import_statement_in_the_port_sources():
              os.path.join(root, "examples", "hass_search_torch.py"),
              os.path.join(root, "examples", "serve_batched_torch.py"),
              os.path.join(root, "examples", "sparsity_patterns_torch.py"),
-             os.path.join(root, "examples", "deploy_sim_torch.py")]
+             os.path.join(root, "examples", "deploy_sim_torch.py"),
+             os.path.join(root, "examples", "train_lm_torch.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
