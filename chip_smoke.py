@@ -1,7 +1,8 @@
 """Quickest proof that the PyTorch/CUDA port starts and is right on an NVIDIA
 GPU: one HASS search on ResNet-18 at its full published widths, driven through
-the entry points a user calls, with both hand-written CUDA kernels built from
-their sources and held against their plain PyTorch versions.
+the entry points a user calls, then Table II's search on all five paper CNNs,
+with both hand-written CUDA kernels built from their sources and held against
+their plain PyTorch versions.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
     python3 chip_smoke.py --costs-out experiments/kernel_costs_h100.json
@@ -31,6 +32,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
   profile  the device's busy share over one batched round of the search
            (8 proposals), from a torch.profiler trace, or "not measured";
            and the device operations of one main-path call of each wrapper
+  paper    Table II on the card: benchmarks_torch.table2_models.row for all
+           five paper CNNs (ResNet-18/50, MobileNetV2, MobileNetV3-S/L) at
+           their published widths and 224 x 224, 8 calibration images, each
+           model's Table II budget, 8 hardware-aware TPE trials; each winner
+           through execute_winner (every product within 1e-4 of its plain
+           version); gates: act_clip_count launches == prunable layers x
+           stats forwards and block_sparse_matmul launches == products per
+           model, the dense proposal scores acc 1.0, metrics in range; per
+           model the products' summed kernel / library / bound times and one
+           stats forward's clip inputs checked and timed
   serve    Qwen3-0.6B at full width through ServeSession: 16 requests of 128
            prompt tokens, 8 slots, bf16; four gates, step and prefill times
   fleet    the serve phase's session again, open loop: the busiest replica's
@@ -74,7 +85,8 @@ tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around each of ``kernel_costs``' two tables,
-``patterns``, ``serve`` with ``fleet``, ``train`` and ``distributed``. The card's name and power limit
+``patterns``, each model of ``paper``, ``serve`` with ``fleet``, ``train``
+and ``distributed``. The card's name and power limit
 and then one line listing every kernel, with its launches on each path, come
 before the last line, which is the device record. Each phase's seconds are
 in the ``done`` line. There is no CPU path: without a card the script exits
@@ -514,32 +526,34 @@ def phase_patterns(payload, factors) -> dict:
             "stats_forwards": forwards, "launches": counts}
 
 
-def phase_timing(rows):
-    """The execute step's products again, on the same operands, timed."""
+def phase_timing(rows, budget_ms: float = 30.0, plain: bool = True):
+    """The execute step's products again, on the same operands, timed:
+    the kernel and one library ``x @ w`` each in a CUDA graph, beside the
+    bound; with ``plain``, also the eager wrapper and the plain version."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bench_util import (device_ms, matmul_bound_ms,
                                                 time_ms)
-    out, tot = [], {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
-                    "library_ms": 0.0,
-                    "bound_ms": 0.0, "ops_bound_ms": 0.0}
+    keys = ("ms", "wrapper_ms", "plain_ms") if plain else ("ms",)
+    out, tot = [], dict.fromkeys(keys + ("library_ms", "bound_ms",
+                                         "ops_bound_ms"), 0.0)
     for r in rows:
         sw, x, wp = r["operands"]
         bound, by = matmul_bound_ms(sw, x.shape[0], x.element_size())
-        ms = matmul_device_ms(sw, x, budget_ms=30.0)
-        wrapper = time_ms(lambda: sw.matmul(x), budget_ms=30.0)
-        plain = time_ms(lambda: ref.block_sparse_matmul_ref(
-            x, wp, sw.mask, sw.bk, sw.bn), budget_ms=30.0)
-        lib = device_ms(lambda: torch.matmul(x, wp), budget_ms=30.0)
+        t = {"ms": matmul_device_ms(sw, x, budget_ms=budget_ms)}
+        if plain:
+            t["wrapper_ms"] = time_ms(lambda: sw.matmul(x),
+                                      budget_ms=budget_ms)
+            t["plain_ms"] = time_ms(lambda: ref.block_sparse_matmul_ref(
+                x, wp, sw.mask, sw.bk, sw.bn), budget_ms=budget_ms)
+        t["library_ms"] = device_ms(lambda: torch.matmul(x, wp),
+                                    budget_ms=budget_ms)
         out.append({"layer": r["layer"], "x": r["x"], "M": r["M"],
                     "K": r["K"], "N": r["N"], "steps": r["schedule_steps"],
-                    "dense_steps": r["dense_steps"], "ms": ms,
-                    "wrapper_ms": wrapper, "plain_ms": plain,
-                    "library_ms": lib, "bound_ms": bound,
+                    "dense_steps": r["dense_steps"], **t,
+                    "bound_ms": bound,
                     "bound_by": by, "plan": plan_of(sw, x.shape[0])})
-        tot["ms"] += ms
-        tot["wrapper_ms"] += wrapper
-        tot["plain_ms"] += plain
-        tot["library_ms"] += lib
+        for k, v in t.items():
+            tot[k] += v
         tot["bound_ms"] += bound
         tot["ops_bound_ms"] += bound if by == "operations" else 0.0
     by = "operations" if tot["ops_bound_ms"] >= 0.5 * tot["bound_ms"] \
@@ -610,6 +624,124 @@ def phase_profile(payload, rows) -> dict:
     return {"device_busy_share": busy / wall_us, "busy_ms": busy / 1e3,
             "window_ms": wall_us / 1e3, "kernels": n_kernels,
             "proposals": 8, "device_ops_per_call": per_call}
+
+
+PAPER_ITERS = 8            # hardware-aware TPE trials per model (the smoke
+                           # t2_iters of benchmarks/run.py)
+
+
+def _clip_per_forward(cfg, dev, gen) -> dict:
+    """One stats forward's clip inputs for ``cfg`` at 224 x 224 (8 images),
+    each held against the plain version bit for bit, then timed as the main
+    path calls it (device time in a CUDA graph, summed over the inputs)."""
+    from repro_torch.kernels import act_clip, ops, ref
+    from repro_torch.kernels.bench_util import (clip_bound_ms, device_ms,
+                                                main_path_clip_shapes)
+    tau, ms, bound = 0.3, 0.0, 0.0
+    shapes = main_path_clip_shapes(CALIB_BATCH, cfg)
+    for name, shape in shapes:
+        x = torch.relu(torch.randn(shape, generator=gen)).to(dev)
+        y, cnt = ops.act_clip(x, tau)
+        y_ref, cnt_ref = ref.act_clip_count_ref(x, tau)
+        if not torch.equal(_bits(y), _bits(y_ref)) or int(cnt) != int(cnt_ref):
+            fail(f"paper: act_clip_count != plain at {cfg.name} {name} "
+                 f"{shape}")
+        ms += device_ms(lambda: ops.act_clip(x, tau), budget_ms=20.0)
+        bound += clip_bound_ms(x, act_clip.flat_tiles(x.numel())[2])[0]
+    return {"inputs": len(shapes), "ms": ms, "bound_ms": bound}
+
+
+def phase_paper(dev) -> dict:
+    """Table II on the card: ``benchmarks_torch.table2_models.row`` for each
+    of the five paper CNNs at its published widths and 224 x 224 (8
+    calibration images, its Table II budget, PAPER_ITERS hardware-aware TPE
+    trials), then the winner through ``execute_winner`` (every product
+    within 1e-4 of the plain version). The launch counters are set to 0
+    just before each model and read just after its execute step; gates:
+    act_clip_count launches == prunable layers x stats forwards,
+    block_sparse_matmul launches == products, the dense proposal scores
+    acc 1.0, every trial's metrics in range. Then each product is timed as
+    ``phase_timing`` does (kernel, library, bound; summed per model) and one
+    stats forward's clip inputs are checked and timed."""
+    from benchmarks_torch.common import calib_images, trained_cnn
+    from benchmarks_torch.table2_models import BUDGETS, row
+    from repro_torch import kernels
+    from repro_torch.configs.paper_cnns import PAPER_CNNS
+    from repro_torch.search_run import execute_winner
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(17)
+    models, launches, max_err = [], {"act_clip_count": 0,
+                                     "block_sparse_matmul": 0}, 0.0
+    for cfg in PAPER_CNNS:
+        t0 = time.perf_counter()
+        params = trained_cnn(cfg, steps=20, device=dev)
+        images = calib_images(cfg.img_res, 0, n=CALIB_BATCH, device=dev)
+        kernels.reset_launch_counts()
+        r, ev, res = row(cfg, params, images, BUDGETS[cfg.name], PAPER_ITERS,
+                         cost_cfg=cfg, seed=0)
+        L = len(ev.prunable)
+        dense = ev(np.zeros(2 * L))
+        prods = execute_winner(ev, res.best_x, max_m=MAX_M,
+                               keep_operands=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        model_s = time.perf_counter() - t0
+        if dense["acc"] != 1.0:
+            fail(f"paper: {cfg.name}'s unpruned proposal scored acc "
+                 f"{dense['acc']}, not 1.0")
+        bad = [p["layer"] for p in prods if not p["ok"]]
+        if bad or len(prods) != L + 1:
+            fail(f"paper: {cfg.name}: {len(prods)} products for {L} prunable "
+                 f"layers, disagreeing with plain: {bad}")
+        if counts["act_clip_count"] != L * ev.stats_forwards or \
+                ev.stats_forwards != PAPER_ITERS + 1:
+            fail(f"paper: {cfg.name}: act_clip_count launches "
+                 f"{counts['act_clip_count']} != {L} x {ev.stats_forwards} "
+                 f"stats forwards")
+        if counts["block_sparse_matmul"] != len(prods):
+            fail(f"paper: {cfg.name}: block_sparse_matmul launches "
+                 f"{counts['block_sparse_matmul']} != {len(prods)} products")
+        for t in res.trials:
+            m = t.metrics
+            if not (np.isfinite(t.score) and 0.0 <= m["acc"] <= 1.0
+                    and 0.0 <= m["spa"] <= 1.0 and m["thr"] > 0
+                    and 0.0 < m["dsp"] <= 1.0 + 1e-9 and len(t.x) == 2 * L):
+                fail(f"paper: {cfg.name}: a trial's metrics are out of "
+                     f"range: {m}")
+        for k in launches:
+            launches[k] += counts[k]
+        err = max(p["max_abs_err"] for p in prods)
+        max_err = max(max_err, err)
+        # the products again, on the same operands, timed (not counted)
+        timed_rows, tot, by = phase_timing(prods, budget_ms=20.0, plain=False)
+        matmul = {"ms": tot["ms"], "library_ms": tot["library_ms"],
+                  "bound_ms": tot["bound_ms"], "bound_by": by}
+        w = max(timed_rows, key=lambda t: t["ms"] - t["library_ms"])
+        worst = {"layer": w["layer"], "x": w["x"],
+                 "MKN": [w["M"], w["K"], w["N"]], "ms": w["ms"],
+                 "library_ms": w["library_ms"],
+                 "loss_ms": w["ms"] - w["library_ms"], "plan": w["plan"]}
+        clip = _clip_per_forward(cfg, dev, gen)
+        models.append({
+            "model": cfg.name, "img_res": cfg.img_res, "budget":
+            BUDGETS[cfg.name], "iters": PAPER_ITERS, "prunable_layers": L,
+            **{k: r[k] for k in ("eff_ratio", "dense_images_s",
+                                 "sparse_images_s", "dense_eff_e9",
+                                 "sparse_eff_e9", "acc_proxy", "spa",
+                                 "search_s")},
+            "trials_per_s": PAPER_ITERS / r["search_s"],
+            "stats_forwards": ev.stats_forwards, "launches": counts,
+            "products": len(prods),
+            "schedule_steps": sum(p["schedule_steps"] for p in prods),
+            "dense_steps": sum(p["dense_steps"] for p in prods),
+            "max_abs_err": err, "matmul": matmul,
+            "largest_loss_to_library": worst, "clip_per_forward": clip,
+            "model_s": model_s})
+        del params, images, ev, res, prods
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"models": models, "launches": launches, "max_abs_err": max_err,
+            "tolerance": "allclose atol=rtol=1e-4 (f32)"}
 
 
 SERVE_ARCH = "qwen3-0.6b"
@@ -1626,10 +1758,12 @@ def main() -> None:
     emit("profile", card=card, **timed("profile", phase_profile, payload,
                                        rows))
     execute_err = max(r["max_abs_err"] for r in rows)
-    # the serving slice needs none of the search's tensors
+    # the paper phase and the serving slice need none of the search's tensors
     del payload, rows, timing_rows
     gc.collect()
     torch.cuda.empty_cache()
+    paper = timed("paper", phase_paper, dev)
+    emit("paper", card=card, **paper)
     sess, serve = timed("serve", phase_serve, dev, card)
     emit("serve", **serve)
     emit("fleet", card=card, **timed("fleet", phase_fleet, sess))
@@ -1650,6 +1784,7 @@ def main() -> None:
     path_launches = {
         "act_clip_count": {"search+execute": counts["act_clip_count"],
                            "patterns": pat["launches"]["act_clip_count"],
+                           "paper": paper["launches"]["act_clip_count"],
                            "train": train["spe_kernel_launches"][
                                "act_clip_count"],
                            "distributed": dist_["spe_kernel_launches"][
@@ -1658,6 +1793,7 @@ def main() -> None:
             "search+execute": counts["block_sparse_matmul"],
             **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
                for t, v in costs["tables"].items()},
+            "paper": paper["launches"]["block_sparse_matmul"],
             "train": train["spe_kernel_launches"]["block_sparse_matmul"],
             "distributed": dist_["spe_kernel_launches"][
                 "block_sparse_matmul"]}}
@@ -1674,7 +1810,8 @@ def main() -> None:
         {"name": mm["name"], "route": mm["route"], "source": mm["source"],
          "replaces": mm["replaces"],
          "launches": counts["block_sparse_matmul"],
-         "max_abs_err": max(mm["max_abs_err_f32"], execute_err),
+         "max_abs_err": max(mm["max_abs_err_f32"], execute_err,
+                            paper["max_abs_err"]),
          "ms": tot["ms"], "wrapper_ms": tot["wrapper_ms"],
          "plain_ms": tot["plain_ms"],
          "bound_ms": tot["bound_ms"], "bound_by": by,

@@ -129,13 +129,15 @@ def tile_sparse_weight(K: int, N: int, density: float, gen: torch.Generator,
     return w * m
 
 
-def main_path_clip_shapes(batch: int = 8) -> List[Tuple[str, tuple]]:
-    """The inputs of ResNet-18's prunable layers for ``batch`` images at its
-    published 224 x 224: what one stats forward hands to ``ops.act_clip``."""
+def main_path_clip_shapes(batch: int = 8, cfg=None
+                          ) -> List[Tuple[str, tuple]]:
+    """The inputs of a CNN's prunable layers (``cfg``, ResNet-18 by default)
+    for ``batch`` images at its published 224 x 224: what one stats forward
+    hands to ``ops.act_clip``."""
     from repro_torch.configs.paper_cnns import RESNET18
     from repro_torch.models import cnn
     shapes = []
-    for s in cnn.build_specs(RESNET18):
+    for s in cnn.build_specs(cfg or RESNET18):
         if s.prunable:
             shapes.append((s.name, (batch, s.in_hw, s.in_hw, s.cin)
                            if s.kind == "conv" else (batch, s.cin)))

@@ -15,6 +15,7 @@ asking for the card on a machine that has none raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -33,25 +34,55 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.models import cnn
 
 
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms for the block, and its autotuner
+    off: on the card a convolution's backward otherwise sums its partial
+    weight gradients in an order that changes from call to call, so one
+    seed would warm up to other weights on every run. Restores the settings
+    it found."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+
+
 def trained_cnn(cfg, steps: int = 30, batch: int = 16, lr: float = 2e-3,
                 seed: int = 0, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """Lightly train a CNN on the synthetic cluster task so magnitude pruning
     has structure to exploit (no ImageNet at hand). Plain SGD through
-    ``torch.autograd`` on the un-clipped forward."""
+    ``torch.autograd`` on the un-clipped forward, under
+    ``deterministic_convolutions``: one seed gives one set of weights on
+    every run on the same card."""
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     params = cnn.init_params(cfg, gen, device=dev)
     paths = [(n, k) for n, p in params.items() for k in p]
-    for i in range(steps):
-        leaves = [params[n][k].requires_grad_(True) for n, k in paths]
-        l, _ = cnn.loss(cfg, params, image_batch(cfg, batch, seed=seed, step=i,
-                                                 device=dev))
-        grads = torch.autograd.grad(l, leaves)
-        with torch.no_grad():
-            for (n, k), p, g in zip(paths, leaves, grads):
-                params[n][k] = (p - lr * g).detach()
+    with deterministic_convolutions():
+        for i in range(steps):
+            leaves = [params[n][k].requires_grad_(True) for n, k in paths]
+            l, _ = cnn.loss(cfg, params, image_batch(cfg, batch, seed=seed,
+                                                     step=i, device=dev))
+            grads = torch.autograd.grad(l, leaves)
+            with torch.no_grad():
+                for (n, k), p, g in zip(paths, leaves, grads):
+                    params[n][k] = (p - lr * g).detach()
     return params
+
+
+def calib_images(img_res: int, seed: int = 0, n: int = 8,
+                 device="cuda") -> torch.Tensor:
+    """``n`` seeded N(0, 1) calibration images, NHWC, drawn on the CPU so
+    that one seed gives one batch on every device (the JAX package draws
+    its own from ``jax.random``, whose stream torch cannot reproduce)."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return torch.randn((n, img_res, img_res, 3), generator=gen).to(device)
 
 
 def dse_backend() -> str:
@@ -79,9 +110,7 @@ def search_compare(iters: int = 16, img_res: int = 224, seed: int = 0,
         build.lib()
     backend = dse_backend()
     params = trained_cnn(cfg, steps=train_steps, seed=seed, device=dev)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(seed)
-    images = torch.randn((8, img_res, img_res, 3), generator=gen).to(dev)
+    images = calib_images(img_res, seed, device=dev)
     ev = CNNEvaluator(cfg, params, images, FPGAModel(), budget=budget,
                       dse_iters=600, cost_cfg=base_cfg)
     _sync(dev)
@@ -160,12 +189,18 @@ def execute_winner(ev: CNNEvaluator, best_x: np.ndarray, *, max_m: int = 25088,
     the static schedule can skip), package it as ``SparseWeight``, and
     multiply a seeded ``x`` of the layer's real row count
     ``M = batch * out_hw**2`` (capped at ``max_m``) through the kernel. ``fc``
-    is multiplied a second time with the network's real pooled features.
+    is multiplied a second time with its real input from the dense forward,
+    tagged with the layer that made it (``gap``: the pooled features; on
+    MobileNetV3, ``fc2``).
     Every product is held against the plain version (atol = rtol = 1e-4,
     float32 summation order). One row per product."""
     dev = ev.device
     s_w, _ = ev._split(best_x)
-    specs = {s.name: s for s in cnn.build_specs(ev.cfg)}
+    order = cnn.build_specs(ev.cfg)
+    specs = {s.name: s for s in order}
+    # the layer whose output fc reads
+    fc_in = next(s.input_from or prev.name
+                 for prev, s in zip(order, order[1:]) if s.name == "fc")
     B = ev.images.shape[0]
     _, outs = cnn.forward(ev.cfg, ev.params, ev.images,
                           return_intermediates=True)
@@ -182,7 +217,7 @@ def execute_winner(ev: CNNEvaluator, best_x: np.ndarray, *, max_m: int = 25088,
         inputs = [("seeded", torch.randn((M, w2.shape[0]),
                                          generator=gen).to(dev))]
         if name == "fc":
-            inputs.append(("gap", outs["gap"]))
+            inputs.append((fc_in, outs[fc_in]))
         for tag, x in inputs:
             out = sw.matmul(x)
             want = ref.block_sparse_matmul_ref(x, wp, sw.mask, sw.bk, sw.bn)

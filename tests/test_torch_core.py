@@ -256,10 +256,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.distributed.pipeline, repro_torch.launch.mesh\n"
         "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
         "import torch.distributed as dist\n"
+        "import benchmarks_torch.run, benchmarks_torch.common\n"
+        "import benchmarks_torch.fig1_frontier, benchmarks_torch.fig4_dse_allocation\n"
+        "import benchmarks_torch.fig5_search_compare, benchmarks_torch.fig6_speedup\n"
+        "import benchmarks_torch.table2_models, benchmarks_torch.dse_bench\n"
+        "import benchmarks_torch.kernels_bench, benchmarks_torch.search_bench\n"
+        "import benchmarks_torch.sparsity_bench\n"
         "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
-        "m.startswith('repro.'))\n"
+        "m.startswith('repro.') or m == 'benchmarks' or "
+        "m.startswith('benchmarks.'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "print('clean')\n")
@@ -267,7 +274,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src
+    # from the repository's root, where benchmarks_torch is a package
     out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=os.path.join(os.path.dirname(__file__), ".."),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "clean"
@@ -278,7 +287,8 @@ def test_no_jax_import_statement_in_the_port_sources():
     import re
     root = os.path.join(os.path.dirname(__file__), "..")
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
-                     r"from repro[. ])", re.M)
+                     r"from repro[. ]|import benchmarks\b|"
+                     r"from benchmarks[. ])", re.M)
     files = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "examples", "hass_search_torch.py"),
              os.path.join(root, "examples", "serve_batched_torch.py"),
@@ -287,7 +297,12 @@ def test_no_jax_import_statement_in_the_port_sources():
              os.path.join(root, "examples", "train_lm_torch.py")]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 30
+    bench = os.path.join(root, "benchmarks_torch")
+    twins = [os.path.join(bench, n) for n in sorted(os.listdir(bench))
+             if n.endswith(".py")]
+    assert len(twins) == 12
+    files += twins
+    assert len(files) > 40
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f

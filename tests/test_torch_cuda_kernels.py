@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.paper_cnns import PAPER_CNNS, RESNET18
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels.act_clip import (act_clip_count, act_clip_count_flat,
@@ -111,6 +112,73 @@ def test_cuda_block_sparse_matmul_main_path_products(cuda, M, K, N):
     oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
     torch.cuda.synchronize()
     assert out.shape == (M, N) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(_np(out), _np(oracle), atol=1e-4, rtol=1e-4)
+
+
+def _execute_shapes(cfg, batch: int = 8, max_m: int = 25088):
+    """(M, K, N) of each prunable layer's product in the execute step
+    (``search_run.execute_winner``) on ``cfg`` at 224 x 224: the matmul view
+    (k * k * cin, cout) of its weight over ``batch * out_hw ** 2`` rows,
+    capped at ``max_m``, or ``batch`` rows for a linear layer."""
+    from repro_torch.models import cnn
+    return [(batch if s.kind == "linear" else min(batch * s.out_hw ** 2,
+                                                  max_m),
+             s.k * s.k * s.cin, s.cout)
+            for s in cnn.build_specs(cfg) if s.prunable]
+
+
+#: the products of the other four paper CNNs (ResNet-50, MobileNetV2,
+#: MobileNetV3-S/L) that ResNet-18's execute step does not have
+PAPER_PRODUCTS = sorted({p for cfg in PAPER_CNNS for p in _execute_shapes(cfg)}
+                        - set(_execute_shapes(RESNET18)))
+#: those that are one 128 x 128 weight tile
+SINGLE_TILE = [p for p in PAPER_PRODUCTS if p[1] <= 128 and p[2] <= 128]
+
+
+def test_resnet18_execute_shapes_are_the_main_path_products():
+    assert _execute_shapes(RESNET18) == MAIN_PRODUCTS[:-1]
+    assert len(PAPER_PRODUCTS) > 60 and (25088, 27, 16) in SINGLE_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", PAPER_PRODUCTS)
+def test_cuda_block_sparse_matmul_paper_cnn_products(cuda, M, K, N):
+    """The execute step's shapes on the MobileNets and ResNet-50 (K and N
+    down to 16, one weight tile, the narrow cp.async path at K = 27), with
+    weights at initialisation scale."""
+    x = _to_torch(RNG.normal(size=(M, K)), "float32", cuda)
+    w = _to_torch(_tile_sparse_weight(K, N) / np.sqrt(K), "float32", cuda)
+    sw = ops.SparseWeight(w)
+    before = bsm.launches
+    out = sw.matmul(x)
+    oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
+    torch.cuda.synchronize()
+    assert bsm.launches == before + 1
+    assert out.shape == (M, N) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(_np(out), _np(oracle), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", SINGLE_TILE + [(25088, 64, 256)])
+def test_cuda_block_sparse_matmul_all_empty_schedule_column(cuda, M, K, N):
+    """A weight whose only tile is zero (and one whose second column of
+    tiles is): the schedule has a column with no steps, which the work plan
+    gives one empty item that writes the column's zeros."""
+    x = _to_torch(RNG.normal(size=(M, K)), "float32", cuda)
+    w = RNG.normal(size=(K, N)).astype(np.float32) / np.sqrt(K)
+    if N <= 128:
+        w[:] = 0.0
+    else:
+        w[:, 128:] = 0.0
+    w = _to_torch(w, "float32", cuda)
+    sw = ops.SparseWeight(w)
+    assert int(sw.host_counts.min()) == 0
+    out = sw.matmul(x)
+    oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float(out[:, 128:].abs().max() if N > 128 else out.abs().max()) \
+        == 0.0
     np.testing.assert_allclose(_np(out), _np(oracle), atol=1e-4, rtol=1e-4)
 
 
