@@ -77,3 +77,43 @@ def save_json(name: str, payload, dev: torch.device, out_dir: str) -> str:
     with open(path, "w") as f:
         json.dump(payload, f, indent=1, sort_keys=True)
     return path
+
+
+def replay_model(arch: str, dev: torch.device):
+    """``(cfg, api, params)`` of the model a serving replay runs: the
+    architecture at its published width and depth in bf16 on the card (as
+    ``chip_smoke.py``'s ``serve`` phase builds it), at ``reduce_config``
+    size on the CPU (as the JAX package's scripts build theirs). Random
+    weights from seed 0: the replays' gates read virtual clocks only."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if dev.type != "cuda":
+        cfg = reduce_config(cfg)
+    api = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return cfg, api, api.init(gen, device=dev)
+
+
+def serve_timed(sess, requests, timing=None, tag: str = "serve", **kw):
+    """``sess.serve_open_loop(requests, **kw)``; where ``timing`` is a dict,
+    adds under ``tag`` the call's wall seconds (the device synchronised at
+    both ends), its decode steps and prefills, and wall milliseconds per
+    decode step (prefills included)."""
+    sync()
+    t0 = time.perf_counter()
+    rep = sess.serve_open_loop(requests, **kw)
+    sync()
+    dt = time.perf_counter() - t0
+    if timing is not None:
+        cfg = sess.api.cfg
+        timing[tag] = {"model": cfg.name, "layers": cfg.num_layers,
+                       "d_model": cfg.d_model, "dtype": cfg.dtype,
+                       "device": str(sess.device), "batch_slots": sess.B,
+                       "S_max": sess.S_max, "serve_s": dt,
+                       "decode_steps": rep.decode_steps,
+                       "prefills": rep.prefills,
+                       "ms_per_decode_step": dt * 1e3
+                       / max(1, rep.decode_steps)}
+    return rep

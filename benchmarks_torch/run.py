@@ -1,10 +1,11 @@
-"""The port's benchmark harness: one entry per paper table/figure and per
-gate of ``benchmarks/run.py`` that this package has a twin of, under the
-same job names.
+"""The port's benchmark harness: one entry per paper table/figure, the
+roofline report and each gate of ``benchmarks/run.py``, under the same job
+names in the same order.
 
     python -m benchmarks_torch.run                      # on the card
     python -m benchmarks_torch.run --only fig5,table2 --full
     python -m benchmarks_torch.run --device cpu --out-dir "$TMPDIR/bench"
+    python -m benchmarks_torch.run --only sim,lm_dse,fleet,chaos,obs,roofline
 
 Prints ``name,us_per_call,derived`` CSV rows and writes
 ``bench_summary_h100.json`` (``bench_summary_full_h100.json`` with
@@ -15,7 +16,9 @@ and for a failed job its error). A failed job makes the run exit 1.
 ``--full`` is the paper's budget (96 TPE iterations per Fig. 5 arm, 24 per
 Table II model); the CNN searches run at 224 x 224, the published
 resolution, on the card, and at 64 x 64, the JAX scripts' default, on the
-host.
+host. ``roofline`` reads the port's dry run
+(``experiments/dryrun_torch.json``). The gates (``dse`` ... ``obs``) run
+their smoke subsets unless ``--full`` is given, as the reference's do.
 """
 import argparse
 import os
@@ -26,8 +29,8 @@ import traceback
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-JOBS = ("kernels", "fig4", "fig6", "fig1", "fig5", "table2", "dse", "search",
-        "sparsity")
+JOBS = ("kernels", "fig4", "fig6", "fig1", "fig5", "table2", "roofline", "dse",
+        "lm_dse", "search", "sim", "fleet", "sparsity", "chaos", "obs")
 
 
 def _scalar_metrics(payload, prefix: str = "", depth: int = 2) -> dict:
@@ -68,10 +71,12 @@ def main(argv=None) -> None:
     if only and only - set(JOBS):
         ap.error(f"unknown jobs {sorted(only - set(JOBS))}")
 
-    from benchmarks_torch import (dse_bench, fig1_frontier,
+    from benchmarks_torch import (chaos_bench, dse_bench, fig1_frontier,
                                   fig4_dse_allocation, fig5_search_compare,
-                                  fig6_speedup, kernels_bench, search_bench,
-                                  sparsity_bench, table2_models)
+                                  fig6_speedup, fleet_bench, kernels_bench,
+                                  lm_dse_bench, obs_bench, roofline_report,
+                                  search_bench, sim_bench, sparsity_bench,
+                                  table2_models)
     from benchmarks_torch.common import save_json, target
     from repro_torch import kernels
     dev, out_dir = target(args.device, args.out_dir)
@@ -90,9 +95,15 @@ def main(argv=None) -> None:
                                                 **kw),
         "table2": lambda: table2_models.run(iters=t2_iters, img_res=res,
                                             **kw),
+        "roofline": lambda: roofline_report.run(**kw),
         "dse": lambda: dse_bench.run(**kw),
+        "lm_dse": lambda: lm_dse_bench.run(smoke=smoke, **kw),
         "search": lambda: search_bench.run(smoke=smoke, **kw),
+        "sim": lambda: sim_bench.run(smoke=smoke, **kw),
+        "fleet": lambda: fleet_bench.run(smoke=smoke, **kw),
         "sparsity": lambda: sparsity_bench.run(smoke=smoke, **kw),
+        "chaos": lambda: chaos_bench.run(smoke=smoke, **kw),
+        "obs": lambda: obs_bench.run(smoke=smoke, **kw),
     }
     print("name,us_per_call,derived")
     failures = 0

@@ -47,6 +47,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
   fleet    the serve phase's session again, open loop: the busiest replica's
            stream of an autoscale policy search, and a degraded step schedule
            with deadlines, each against fleet.open_loop_schedule's clocks
+  bench_twins  six benchmark twins of benchmarks_torch/, each
+           run(smoke=True) on the card called directly: roofline (over one
+           dry-run cell laid out in its own process), lm_dse, sim, fleet,
+           chaos, obs, with all of their own gates (the 1M-event engine race >= 10x, the LM DSE >=
+           10x, tracer overhead < 3 %); fleet's replay and chaos's
+           zero_fault and replay serve Qwen3-0.6B at full width in bf16 and
+           must equal the same sections run on the CPU at reduce_config
+           size; no job launches an SPE kernel; then
+           examples/quickstart_torch.py on the card: act_clip_count
+           launches == prunable layers x stats forwards + 1,
+           block_sparse_matmul >= 1, its product within 1e-4 of the plain
+           version; decode ms per step of the replays
   deploy   host only: search -> partition -> simulate -> SLO pick on
            Qwen3-0.6B over 4 modeled chips (repro_torch.deploy_run)
   train    Qwen3-0.6B at full width trained 8 AdamW steps through
@@ -85,10 +97,11 @@ tiles is the kernel's cost, not the work's.
 
 The launch counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around each of ``kernel_costs``' two tables,
-``patterns``, each model of ``paper``, ``serve`` with ``fleet``, ``train``
-and ``distributed``. The card's name and power limit
-and then one line listing every kernel, with its launches on each path, come
-before the last line, which is the device record. Each phase's seconds are
+``patterns``, each model of ``paper``, ``serve`` with ``fleet``, each job
+of ``bench_twins`` and its quickstart, ``train`` and ``distributed``. The
+card's name and power limit and then one line listing every kernel, with its
+launches on each path, come before the last line, which is the device
+record. Each phase's seconds are
 in the ``done`` line. There is no CPU path: without a card the script exits
 2.
 """
@@ -1048,6 +1061,182 @@ def phase_fleet(sess) -> dict:
     return out
 
 
+def _dryrun_file(path: str, single_pod: bool = True) -> dict:
+    """One dry-run cell (qwen3-0.6b, train_4k, pod16x16 unless
+    ``single_pod`` is false) in a process of its own on the ``fake``
+    backend, away from the card, written to ``path``; returns its record."""
+    key = "qwen3-0.6b|train_4k|" + ("pod16x16" if single_pod
+                                    else "pod2x16x16")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", "train_4k",
+         "--single-pod" if single_pod else "--multi-pod", "--out", path],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES=""))
+    if r.returncode != 0 or not os.path.exists(path):
+        fail(f"the dry run failed: {r.stderr[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)[key]
+    if rec.get("status") != "ok":
+        fail(f"dry-run cell {key}: {rec}")
+    return rec
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module (the directory is no package)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_bench_twins(dev) -> dict:
+    """Six benchmark twins (roofline, lm_dse, sim, fleet, chaos, obs), each
+    ``run(smoke=True, device=dev, out_dir=tmp)`` called directly (module
+    docstring), then
+    ``examples/quickstart_torch.py`` on the card. Every job's own asserts
+    are gates (nothing is caught); beside them: no job launches an SPE
+    kernel; the roofline rows are the dry-run record; the fleet ``replay``
+    and the chaos ``zero_fault`` and ``replay`` sections, whose serve path
+    runs Qwen3-0.6B at full width in bf16 here, equal the same sections run
+    on the CPU at ``reduce_config`` size; quickstart launches
+    ``act_clip_count`` once per prunable layer per stats forward plus once
+    for its act 4, ``block_sparse_matmul`` at least once, and its product
+    is within 1e-4 of the plain version."""
+    from benchmarks_torch import (chaos_bench, fleet_bench, lm_dse_bench,
+                                  obs_bench, roofline_report, sim_bench)
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    cpu = torch.device("cpu")
+    full = get_config("qwen3-0.6b")
+    jobs, sections = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dry_path = os.path.join(tmp, "dryrun_torch.json")
+        t0 = time.perf_counter()
+        dry = _dryrun_file(dry_path)
+        dry_s = time.perf_counter() - t0
+        kw = dict(smoke=True, device=dev, out_dir=tmp)
+        for name, job in (
+                ("roofline", lambda: roofline_report.run(
+                    path=dry_path, device=dev, out_dir=tmp)),
+                ("lm_dse", lambda: lm_dse_bench.run(**kw)),
+                ("sim", lambda: sim_bench.run(**kw)),
+                ("fleet", lambda: fleet_bench.run(**kw)),
+                ("chaos", lambda: chaos_bench.run(**kw)),
+                ("obs", lambda: obs_bench.run(**kw))):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            payload = job()
+            jobs[name] = {"seconds": time.perf_counter() - t0}
+            launches = kernels.launch_counts()
+            if any(launches.values()):
+                fail(f"bench_twins: {name} launched an SPE kernel: "
+                     f"{launches}")
+            sections[name] = payload
+        written = sorted(os.listdir(tmp))
+    if sections["roofline"] != [dry] or dry["collective_s"] is not None:
+        fail(f"bench_twins: roofline rows {sections['roofline']} are not "
+             f"the dry-run record")
+    want = {f"{n}_h100.json" for n in ("lm_dse_bench", "sim_bench",
+                                        "fleet_bench", "chaos_bench",
+                                        "obs_bench", "obs_trace")}
+    if not want <= set(written):
+        fail(f"bench_twins: the jobs wrote {written}")
+
+    # the serving sections against the same sections on the CPU
+    t0 = time.perf_counter()
+    _, winner = fleet_bench.bench_policy(True)
+    cpu_sections = {
+        "fleet.replay": fleet_bench.bench_replay(True, winner, cpu),
+        "chaos.zero_fault": chaos_bench.bench_zero_fault(True, cpu),
+        "chaos.replay": chaos_bench.bench_degraded_replay(True, cpu)}
+    cpu_s = time.perf_counter() - t0
+    card_sections = {"fleet.replay": sections["fleet"]["replay"],
+                     "chaos.zero_fault": sections["chaos"]["zero_fault"],
+                     "chaos.replay": sections["chaos"]["replay"]}
+    for tag, got in card_sections.items():
+        if got != cpu_sections[tag]:
+            fail(f"bench_twins: {tag} on the card {got} != on the CPU "
+                 f"{cpu_sections[tag]}")
+    timing = {**{f"fleet.{k}": v for k, v in
+                 sections["fleet"]["serve_timing"].items()},
+              **{f"chaos.{k}": v for k, v in
+                 sections["chaos"]["serve_timing"].items()}}
+    for tag, t in timing.items():
+        if t["device"] == "cpu" or t["layers"] != full.num_layers or \
+                t["d_model"] != full.d_model or t["dtype"] != "bfloat16":
+            fail(f"bench_twins: {tag} did not serve full-width Qwen3-0.6B "
+                 f"in bf16 on the card: {t}")
+
+    # quickstart on the card: both SPE kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    q = _example("quickstart_torch").main(["--device", "cuda"])
+    q_s = time.perf_counter() - t0
+    q_launches = kernels.launch_counts()
+    clip_want = q["prunable"] * q["stats_forwards"] + 1
+    if q_launches["act_clip_count"] != clip_want or \
+            q_launches["block_sparse_matmul"] < 1:
+        fail(f"bench_twins: quickstart launched {q_launches}, expected "
+             f"act_clip_count {clip_want} and block_sparse_matmul >= 1")
+    if not (q["max_abs_err_plain"] <= 1e-4 and q["max_abs_err"] <= 1e-4
+            and q["clip_equals_plain"]):
+        fail(f"bench_twins: quickstart's kernels disagree with their plain "
+             f"versions: {q}")
+
+    p = sections
+    gates = {
+        "roofline": {"rows": len(p["roofline"]),
+                     "rows_equal_dry_run_record": True,
+                     "collective_s": None},
+        "lm_dse": {"worst_speedup": min(r["speedup"]
+                                        for r in p["lm_dse"]["dse"]),
+                   "gate": ">= 10"},
+        "sim": {"worst_agreement_err": p["sim"]["worst_agreement_err"],
+                "sim_tol": p["sim"]["sim_tol"],
+                "slo_p99": p["sim"]["slo"]["slo"]["p99"],
+                "maxmin_p99": p["sim"]["slo"]["maxmin"]["p99"]},
+        "fleet": {"engine_speedup": p["fleet"]["engine_speedup"]["speedup"],
+                  "engine_events": p["fleet"]["engine_speedup"]["events"],
+                  "gate": ">= 10",
+                  "searched_p99": p["fleet"]["policy"]["searched"]["p99"],
+                  "searched_cost": p["fleet"]["policy"]["searched"]["cost"],
+                  "replay_twin_identical":
+                      p["fleet"]["replay"]["twin_identical"]},
+        "chaos": {"zero_fault_consumers": len(p["chaos"]["zero_fault"]),
+                  "aware_p99": p["chaos"]["search"]["aware_p99"],
+                  "blind_p99": p["chaos"]["search"]["blind_p99"],
+                  "degraded_shed": p["chaos"]["degrade"]["degraded_shed"],
+                  "plain_shed": p["chaos"]["degrade"]["plain_shed"],
+                  "switch_stalls": p["chaos"]["replay"]["switch_stalls"]},
+        "obs": {"overhead_pct": p["obs"]["overhead"]["overhead_pct"],
+                "gate_pct": p["obs"]["overhead_gate_pct"],
+                "paired_ratios": p["obs"]["overhead"]["paired_ratios"],
+                "trial_spans": p["obs"]["trace"]["trial_spans"],
+                "same_seed_divergence":
+                    p["obs"]["report"]["same_seed_divergence"]}}
+    for name in jobs:
+        jobs[name].update(ok=True, gates=gates[name])
+    return {"jobs": jobs, "dry_run_s": dry_s,
+            "serve_sections_equal_cpu": sorted(card_sections),
+            "cpu_sections_s": cpu_s, "spe_kernel_launches": 0,
+            "replay_serve": timing,
+            "replay_decode_ms_per_step": {
+                tag: t["ms_per_decode_step"] for tag, t in timing.items()},
+            "quickstart": {"seconds": q_s, "launches": q_launches,
+                           "act_clip_count_expected": clip_want,
+                           "prunable": q["prunable"],
+                           "stats_forwards": q["stats_forwards"],
+                           "max_abs_err": q["max_abs_err"],
+                           "max_abs_err_plain": q["max_abs_err_plain"],
+                           "tolerance": 1e-4,
+                           "tile_density": q["tile_density"],
+                           "best_metrics": q["best_metrics"]}}
+
+
 def phase_deploy() -> dict:
     """Host only: ``examples/deploy_sim_torch.py``'s flow at its defaults
     (Qwen3-0.6B ``LMEvaluator``, ``TPUModel(chips=4)``, 600 MMPP requests,
@@ -1493,20 +1682,9 @@ def dryrun_cell() -> dict:
     its own on the ``fake`` backend, away from the card: the launch path's
     smoke test (its bytes per rank are shape arithmetic, not a
     measurement of the card)."""
-    key = "qwen3-0.6b|train_4k|pod2x16x16"
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "dryrun_torch.json")
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "qwen3-0.6b", "--shape", "train_4k", "--multi-pod", "--out",
-             out], capture_output=True, text=True, timeout=300,
-            env=dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES=""))
-        if r.returncode != 0 or not os.path.exists(out):
-            fail(f"distributed: the dry run failed: {r.stderr[-2000:]}")
-        with open(out) as f:
-            rec = json.load(f)[key]
-    if rec.get("status") != "ok":
-        fail(f"distributed: dry-run cell {key}: {rec}")
+        rec = _dryrun_file(os.path.join(tmp, "dryrun_torch.json"),
+                           single_pod=False)
     return {k: rec[k] for k in ("key", "chips", "bytes_per_rank",
                                 "arg_bytes", "compute_s", "memory_s",
                                 "collective_s", "dominant", "fits_hbm",
@@ -1773,6 +1951,11 @@ def main() -> None:
     del sess
     gc.collect()
     torch.cuda.empty_cache()
+    twins = timed("bench_twins", phase_bench_twins, dev)
+    emit("bench_twins", card=card,
+         serve_decode_ms_per_step=serve["decode_ms_per_step"], **twins)
+    gc.collect()
+    torch.cuda.empty_cache()
     emit("deploy", **timed("deploy", phase_deploy))
     train = timed("train", phase_train, dev, card)
     emit("train", **train)
@@ -1785,6 +1968,9 @@ def main() -> None:
         "act_clip_count": {"search+execute": counts["act_clip_count"],
                            "patterns": pat["launches"]["act_clip_count"],
                            "paper": paper["launches"]["act_clip_count"],
+                           "quickstart": twins["quickstart"]["launches"][
+                               "act_clip_count"],
+                           "bench_twins": twins["spe_kernel_launches"],
                            "train": train["spe_kernel_launches"][
                                "act_clip_count"],
                            "distributed": dist_["spe_kernel_launches"][
@@ -1794,6 +1980,9 @@ def main() -> None:
             **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
                for t, v in costs["tables"].items()},
             "paper": paper["launches"]["block_sparse_matmul"],
+            "quickstart": twins["quickstart"]["launches"][
+                "block_sparse_matmul"],
+            "bench_twins": twins["spe_kernel_launches"],
             "train": train["spe_kernel_launches"]["block_sparse_matmul"],
             "distributed": dist_["spe_kernel_launches"][
                 "block_sparse_matmul"]}}

@@ -9,7 +9,6 @@ gate end to end on the CPU (payload keys as in the file its JAX script wrote,
 ``experiments/sparsity_bench.json``; the decode factors and the ``meas_term``
 section equal to the JAX script's sections run on the same modeled table),
 and where a run of the port may write."""
-import hashlib
 import json
 import os
 import sys
@@ -28,43 +27,12 @@ from benchmarks import fig6_speedup as jfig6  # noqa: E402
 from benchmarks_torch import (common, dse_bench,  # noqa: E402
                               fig4_dse_allocation, fig6_speedup, search_bench,
                               sparsity_bench)
+from _bench_util import experiments_untouched  # noqa: E402,F401
+from _bench_util import load as _load  # noqa: E402
+from _bench_util import without as _without  # noqa: E402
 
 # several test processes run side by side: a few threads each
 torch.set_num_threads(2)
-
-EXPERIMENTS = os.path.join(ROOT, "experiments")
-
-
-def _digest(d: str) -> dict:
-    out = {}
-    for name in sorted(os.listdir(d)):
-        with open(os.path.join(d, name), "rb") as f:
-            out[name] = hashlib.sha256(f.read()).hexdigest()
-    return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def experiments_untouched():
-    before = _digest(EXPERIMENTS)
-    yield
-    assert _digest(EXPERIMENTS) == before
-
-
-def _load(path):
-    with open(path) as f:
-        return json.load(f)
-
-
-def _without(tree, keys):
-    """``tree`` with every dict entry named in ``keys`` dropped, at any
-    depth."""
-    if isinstance(tree, dict):
-        return {k: _without(v, keys) for k, v in tree.items()
-                if k not in keys}
-    if isinstance(tree, list):
-        return [_without(v, keys) for v in tree]
-    return tree
-
 
 @pytest.mark.parametrize("jmod,tmod,name,kw", [
     (jfig4, fig4_dse_allocation, "fig4", {}),

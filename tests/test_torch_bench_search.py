@@ -289,6 +289,8 @@ def test_runner_lists_a_subset_of_the_jax_runner():
     jax_jobs, port_jobs = lists
     assert port_jobs and set(port_jobs) <= set(jax_jobs)
     assert [j for j in jax_jobs if j in port_jobs] == port_jobs
+    # every job of the JAX runner has its twin, in the same order
+    assert port_jobs == jax_jobs and len(jax_jobs) == 15
 
 
 def test_runner_on_the_cpu_writes_its_summary(tmp_path):

@@ -289,18 +289,17 @@ def test_no_jax_import_statement_in_the_port_sources():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
                      r"from repro[. ]|import benchmarks\b|"
                      r"from benchmarks[. ])", re.M)
-    files = [os.path.join(root, "chip_smoke.py"),
-             os.path.join(root, "examples", "hass_search_torch.py"),
-             os.path.join(root, "examples", "serve_batched_torch.py"),
-             os.path.join(root, "examples", "sparsity_patterns_torch.py"),
-             os.path.join(root, "examples", "deploy_sim_torch.py"),
-             os.path.join(root, "examples", "train_lm_torch.py")]
+    import glob
+    examples = sorted(glob.glob(os.path.join(root, "examples",
+                                             "*_torch.py")))
+    assert len(examples) == 9
+    files = [os.path.join(root, "chip_smoke.py"), *examples]
     for d, _, names in os.walk(os.path.join(root, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bench = os.path.join(root, "benchmarks_torch")
     twins = [os.path.join(bench, n) for n in sorted(os.listdir(bench))
              if n.endswith(".py")]
-    assert len(twins) == 12
+    assert len(twins) == 18
     files += twins
     assert len(files) > 40
     for f in files:
