@@ -8,9 +8,10 @@ For each CNN (ResNet-18/50, MobileNetV2, MobileNetV3-S/L):
     sparse/dense efficiency ratio (paper: 1.3-4.2x).
 The accuracy proxy and the measured sparsities come from forwards at
 ``img_res`` (on the card every prunable layer's clip and zero count is one
-``act_clip_count`` launch); C_l and the DSE use the full 224 x 224 layer
-costs (analytic — no forward needed). ``row`` is one model's work, shared
-with ``chip_smoke.py``'s ``paper`` phase.
+launch of the ``act_clip_count`` kernel's batched entry per stats pass);
+C_l and the DSE use the full 224 x 224 layer costs (analytic — no forward
+needed). ``row`` is one model's work, shared with ``chip_smoke.py``'s
+``paper`` phase.
 """
 import dataclasses
 

@@ -13,19 +13,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
   device   card name and power limit, torch / CUDA versions, kernel build time
   kernels  each kernel against its plain version on the card: the reference
            tests' shapes and dtypes, then the search's own shapes with kernel,
-           plain, bound and one-PyTorch-call times
+           plain, bound and one-PyTorch-call times; the clip's batched entry
+           (gate b) at the 21 ResNet-18 clip inputs of a round of 8
+           proposals and of a serial pass (1 proposal), one tau each: y bit
+           for bit, counts equal
   kernel_costs  the pattern decode-cost tables (``kernels.kernel_costs``)
            measured on the card at the default probe shape and at the main
            path's (a ResNet-18 layer-3 im2col product): each probe's time,
            mode and check against its plain version, the decode factors and
            the block_sparse_matmul launches
   search   SGD warm-up, CNNEvaluator, hass_search hardware-aware and
-           software-only (16 trials each, 8 per round), a short serial run and
-           its batch_size=1 replay; counts act_clip_count launches
+           software-only (16 trials each, 8 per round: one batched program,
+           captured once as a CUDA graph and replayed), a short serial run
+           and its batch_size=1 replay (gate e); gates: launches of the
+           clip's batched entry == prunable layers x stats passes and of its
+           single entry 0, stats forwards == the proposals evaluated, the
+           16-trial searches built one shape (gate c); prints graphs
+           captured, capture seconds, graph-pool bytes, trials/s batched
+           and serial
+  search_gates  right after the main path's counts are read, on its
+           evaluator: (a) one captured replay == the same batched pass run
+           eagerly, bit for bit; (c) a ragged 3 + 3 + 2 search pads its tail
+           and builds one new shape; (d) every batched trial of both
+           searches within rel 1e-3 / abs 1e-6 of the same proposal through
+           the serial path; launches == prunable layers x passes
   execute  the winner's pruned weights through block_sparse_matmul
   patterns the search's configuration again with the pattern axis: the
-           degenerate ("unstructured",) axis replays the search's transcript,
-           then all four patterns priced by the main-path table
+           degenerate ("unstructured",) axis replays the search's transcript
+           (gate e), then all four patterns priced by the main-path table
+           (the pattern program: every branch per layer, selected by code)
   timing   the execute step's products again, timed: kernel, plain, bound,
            dense library call, and each product's work plan (tile, splits,
            blocks)
@@ -37,11 +53,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
            their published widths and 224 x 224, 8 calibration images, each
            model's Table II budget, 8 hardware-aware TPE trials; each winner
            through execute_winner (every product within 1e-4 of its plain
-           version); gates: act_clip_count launches == prunable layers x
-           stats forwards and block_sparse_matmul launches == products per
-           model, the dense proposal scores acc 1.0, metrics in range; per
-           model the products' summed kernel / library / bound times and one
-           stats forward's clip inputs checked and timed
+           version); gates: launches of the clip's batched entry ==
+           prunable layers x stats passes (its single entry 0) and
+           block_sparse_matmul launches == products per model, the dense
+           proposal scores acc 1.0, metrics in range; per model the
+           products' summed kernel / library / bound times and one serial
+           stats pass's clip inputs through the batched entry, checked
+           against its plain version and timed
   serve    Qwen3-0.6B at full width through ServeSession: 16 requests of 128
            prompt tokens, 8 slots, bf16; four gates, step and prefill times
   fleet    the serve phase's session again, open loop: the busiest replica's
@@ -55,10 +73,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
            zero_fault and replay serve Qwen3-0.6B at full width in bf16 and
            must equal the same sections run on the CPU at reduce_config
            size; no job launches an SPE kernel; then
-           examples/quickstart_torch.py on the card: act_clip_count
-           launches == prunable layers x stats forwards + 1,
-           block_sparse_matmul >= 1, its product within 1e-4 of the plain
-           version; decode ms per step of the replays
+           examples/quickstart_torch.py on the card: launches of the clip's
+           batched entry == prunable layers x stats passes, of its single
+           entry 1, block_sparse_matmul >= 1, its product within 1e-4 of the
+           plain version; decode ms per step of the replays
   deploy   host only: search -> partition -> simulate -> SLO pick on
            Qwen3-0.6B over 4 modeled chips (repro_torch.deploy_run)
   train    Qwen3-0.6B at full width trained 8 AdamW steps through
@@ -84,24 +102,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
            final state bit for bit); no other phase runs under that setting
 
 Times: ``ms`` is the device time of the call the main path makes
-(``ops.act_clip`` / ``SparseWeight.matmul`` on the operands the main path
-hands them, unpadded, inside a CUDA graph that is then replayed, so the host's
-cost of making a call is not in the number: the main path pays that cost too,
-see ``wrapper_ms``); it holds every device operation of the call (the
-matmul's split reduction too). ``library_ms`` is one dense
+(``ops.act_clip`` / ``ops.act_clip_batched`` / ``SparseWeight.matmul`` on the
+operands the main path hands them, unpadded, inside a CUDA graph that is then
+replayed, so the host's cost of making a call is not in the number: the main
+path pays that cost too, see ``wrapper_ms``); it holds every device operation
+of the call (the matmul's split reduction too). ``library_ms`` is one dense
 ``x @ w`` timed the same way, ``plain_device_ms`` the clip's plain version
 timed the same way, ``wrapper_ms`` the same call eagerly with its host cost,
 and ``plain_ms`` the plain PyTorch version called the same way. ``bound_ms``
 counts the unpadded operands of the function the main path calls: padding to
 tiles is the kernel's cost, not the work's.
 
-The launch counters are set to 0 just before ``search`` and read just after
-``execute``, and again around each of ``kernel_costs``' two tables,
+A batched stats pass replays a CUDA graph: the launches the graph holds
+count at each replay, never at its capture (``kernels.graph``). The launch
+counters are set to 0 just before ``search`` and read just after
+``execute``, and again around ``search_gates``, each of ``kernel_costs``' two tables,
 ``patterns``, each model of ``paper``, ``serve`` with ``fleet``, each job
 of ``bench_twins`` and its quickstart, ``train`` and ``distributed``. The
-card's name and power limit and then one line listing every kernel, with its
-launches on each path, come before the last line, which is the device
-record. Each phase's seconds are
+card's name and power limit and then one line listing every kernel (the
+clip's single and batched entries apart), with its launches on each path,
+come before the last line, which is the device record. The single entry's
+``launches`` are those of the path that runs it, the quickstart. Each phase's seconds are
 in the ``done`` line. There is no CPU path: without a card the script exits
 2.
 """
@@ -247,6 +268,70 @@ def phase_kernels_clip(dev):
             "library_ms": None,
             "timed_over": "the 21 inputs of one stats forward, f32, summed",
             "shapes": rows}
+
+
+SEARCH_BATCH = 8          # proposals per round of the search phase
+
+
+def _clip_batched_at(dev, gen, B: int) -> dict:
+    """The clip's batched entry against its plain version at the 21
+    ResNet-18 clip inputs of one stats pass of B proposals (8 images at 224
+    x 224, the proposals' channels side by side, one tau each): y bit for
+    bit, every proposal's count equal. Then each input timed as the
+    evaluator calls it (device time in a CUDA graph), beside the plain
+    version and the bound 2 x B x n x 4 bytes over the memory rate."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bench_util import (clip_bound_ms, device_ms,
+                                                main_path_clip_shapes, time_ms)
+    taus = torch.linspace(0.05, 0.6, B, dtype=torch.float32).to(dev)
+    rows, tot, max_err = [], dict.fromkeys(
+        ("ms", "plain_ms", "plain_device_ms", "bound_ms"), 0.0), 0.0
+    for name, shape in main_path_clip_shapes(CALIB_BATCH):
+        stacked = shape[:-1] + (B * shape[-1],)
+        x = torch.relu(torch.randn(stacked, generator=gen)).to(dev)
+        y, cnt = ops.act_clip_batched(x, taus)
+        y_ref, cnt_ref = ref.act_clip_count_batched_ref(x, taus)
+        if not torch.equal(_bits(y), _bits(y_ref)) or \
+                not torch.equal(cnt, cnt_ref):
+            fail(f"act_clip_count_batched != plain at {name} {stacked}: "
+                 f"{cnt.tolist()} vs {cnt_ref.tolist()}")
+        max_err = max(max_err, float((y - y_ref).abs().max()))
+        bound, by = clip_bound_ms(x, B)
+        t = {"ms": device_ms(lambda: ops.act_clip_batched(x, taus)),
+             "plain_ms": time_ms(
+                 lambda: ref.act_clip_count_batched_ref(x, taus)),
+             "plain_device_ms": device_ms(
+                 lambda: ref.act_clip_count_batched_ref(x, taus)),
+             "bound_ms": bound}
+        rows.append({"layer": name, "shape": list(stacked), **t,
+                     "bound_by": by})
+        for k, v in t.items():
+            tot[k] += v
+    return {"cases": len(rows), "max_abs_err": max_err, **tot,
+            "proposals": B, "shapes": rows}
+
+
+def phase_kernels_clip_batched(dev):
+    """Gate (b) at B = 8 (a search round) and B = 1 (a serial pass, where
+    the entry cuts the rows into other blocks): the batched entry against
+    its plain version, then timed. The record's numbers are the B = 8
+    pass's."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(8)
+    at8 = _clip_batched_at(dev, gen, SEARCH_BATCH)
+    at1 = _clip_batched_at(dev, gen, 1)
+    return {"name": "act_clip_count_batched", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/act_clip_count.cu",
+            "replaces": "src/repro/kernels/act_clip.py:40",
+            "equal": True, "cases": at8["cases"] + at1["cases"],
+            "max_abs_err": max(at8["max_abs_err"], at1["max_abs_err"]),
+            "tolerance": "bit-equal output and equal count per proposal",
+            **{k: at8[k] for k in ("ms", "plain_ms", "plain_device_ms",
+                                   "bound_ms", "proposals", "shapes")},
+            "bound_by": "bytes", "library_ms": None,
+            "timed_over": "the 21 inputs of one batched stats pass of 8 "
+                          "proposals, f32, summed",
+            "serial": {k: v for k, v in at1.items() if k != "cases"}}
 
 
 def matmul_device_ms(sw, x, budget_ms: float = 60.0) -> float:
@@ -431,12 +516,17 @@ def phase_search(dev):
     from repro_torch.kernels import launch_counts
     from repro_torch.search_run import search_compare
     payload = search_compare(iters=16, img_res=RESNET18_IMG_RES, seed=0,
-                             budget=12234, batch_size=8, device=dev,
-                             train_steps=20)
+                             budget=12234, batch_size=SEARCH_BATCH,
+                             device=dev, train_steps=20)
     ev = payload["ev"]
     L = len(ev.prunable)
     if L != 21:
         fail(f"ResNet-18 should have 21 prunable layers, found {L}")
+    # gate (c): two 16-trial searches of 8 per round built exactly one shape
+    if ev.batch_shapes != {SEARCH_BATCH} or ev.padded_batches or \
+            set(ev._graphs) != {(False, SEARCH_BATCH)}:
+        fail(f"the 16-trial searches built shapes {ev.batch_shapes} "
+             f"(graphs {sorted(ev._graphs)}, {ev.padded_batches} padded)")
     # a short serial run, and its replay through the batched loop at size 1
     t0 = time.perf_counter()
     serial = hass_search(ev, L, iters=4, seed=1, batch_size=None)
@@ -449,12 +539,16 @@ def phase_search(dev):
     dense = ev(np.zeros(2 * L))
     if dense["acc"] != 1.0:
         fail(f"the unpruned proposal scored acc {dense['acc']}, not 1.0")
-    # 16 + 16 + 4 + 4 trials and the dense proposal: 41 stats forwards, each
-    # one act_clip_count launch per prunable layer
-    launches = launch_counts()["act_clip_count"]
-    if launches != 21 * ev.stats_forwards or ev.stats_forwards != 41:
-        fail(f"act_clip_count launches {launches} != 21 x "
-             f"{ev.stats_forwards} stats forwards (41 expected)")
+    # 16 + 16 + 4 + 4 trials and the dense proposal: 41 proposals in 2 + 2
+    # batched passes and 4 + 4 + 1 serial ones, each pass one launch of the
+    # batched entry per prunable layer
+    counts = launch_counts()
+    launches = counts["act_clip_count_batched"]
+    if launches != 21 * ev.stats_passes or ev.stats_passes != 13 or \
+            counts["act_clip_count"] or ev.stats_forwards != 41:
+        fail(f"act_clip_count launches {counts} != 21 x {ev.stats_passes} "
+             f"stats passes (13 expected) through the batched entry, "
+             f"{ev.stats_forwards} proposals (41)")
     for res in (payload["hw_result"], payload["sw_result"], serial):
         for t in res.trials:
             m = t.metrics
@@ -468,9 +562,13 @@ def phase_search(dev):
          setup_s=payload["setup_s"], search_s=payload["search_s"],
          trials_per_s=payload["trials_per_s"],
          serial_trials_per_s=4 / serial_s,
-         stats_forwards=ev.stats_forwards,
-         act_clip_launches_per_forward=21,
+         stats_forwards=ev.stats_forwards, stats_passes=ev.stats_passes,
+         act_clip_launches_per_pass=21,
          act_clip_launches=launches,
+         graphs_captured=ev.graphs_captured, capture_s=ev.capture_s,
+         graph_pool_bytes=ev.graph_pool_bytes,
+         batch_shapes=sorted(ev.batch_shapes),
+         one_shape_per_search=True,
          batch1_replays_serial=True,
          hw_best={k: payload["hw_best"][k] for k in
                   ("acc", "spa", "thr", "dsp", "eff", "score")},
@@ -497,6 +595,69 @@ def phase_execute(payload):
     return rows
 
 
+def phase_search_gates(payload) -> dict:
+    """Gates (a), (c) and (d) on the search phase's evaluator, with the
+    launch counters set to 0 just before and read just after: every pass
+    here is one launch of the batched entry per prunable layer."""
+    from repro_torch import kernels
+    from repro_torch.core.hass import hass_search
+    ev = payload["ev"]
+    L = len(ev.prunable)
+    kernels.reset_launch_counts()
+    passes0 = ev.stats_passes
+    # (a) one captured replay == the same batched pass run eagerly
+    rng = np.random.default_rng(11)
+    s_w = rng.uniform(0.0, 0.9, (SEARCH_BATCH, L)).astype(np.float32)
+    s_a = rng.uniform(0.0, 0.9, (SEARCH_BATCH, L)).astype(np.float32)
+    replayed = ev._pass(s_w, s_a, None, SEARCH_BATCH)
+    with torch.no_grad():
+        eager = ev._device_pass(torch.from_numpy(s_w).to(ev.device),
+                                torch.from_numpy(s_a).to(ev.device))
+    eager = eager.cpu().numpy()
+    replayed = np.concatenate([replayed[0][:, None], *replayed[1:]], 1)
+    if not np.array_equal(replayed.view(np.int32), eager.view(np.int32)):
+        fail("search_gates (a): a replayed pass differs from the same pass "
+             "run eagerly")
+    # (c) a ragged 3 + 3 + 2 search pads its tail to the shape it built
+    shapes, padded, graphs = set(ev.batch_shapes), ev.padded_batches, \
+        ev.graphs_captured
+    ragged = hass_search(ev, L, iters=8, seed=4, batch_size=3)
+    if len(ragged.trials) != 8 or ev.padded_batches <= padded or \
+            ev.batch_shapes - shapes != {3} or \
+            ev.graphs_captured != graphs + 1:
+        fail(f"search_gates (c): the ragged search built "
+             f"{ev.batch_shapes - shapes}, padded "
+             f"{ev.padded_batches - padded} rounds")
+    # (d) every batched trial against the same proposal through the serial
+    # path, within the reference's bar
+    worst, checked = 0.0, 0
+    for res in (payload["hw_result"], payload["sw_result"], ragged):
+        for t in res.trials:
+            ms = ev(t.x)
+            for k, v in ms.items():
+                diff = abs(t.metrics[k] - v)
+                if diff > max(1e-3 * abs(v), 1e-6):
+                    fail(f"search_gates (d): batched {k}={t.metrics[k]} vs "
+                         f"serial {v}")
+                worst = max(worst, diff / max(abs(v), 1e-12))
+            checked += 1
+    torch.cuda.synchronize()
+    # the evaluator's passes, and gate (a)'s eager pass beside them
+    passes = ev.stats_passes - passes0 + 1
+    counts = kernels.launch_counts()
+    if counts["act_clip_count_batched"] != L * passes or \
+            counts["act_clip_count"] or counts["block_sparse_matmul"]:
+        fail(f"search_gates: launches {counts} over {passes} passes")
+    return {"replay_equals_eager": True, "ragged_padded_rounds":
+            ev.padded_batches - padded, "ragged_new_shapes": [3],
+            "trials_checked_against_serial": checked,
+            "worst_rel_diff": worst, "tolerance": "rel 1e-3 / abs 1e-6",
+            "passes": passes, "launches": counts,
+            "graphs_captured": ev.graphs_captured,
+            "graph_pool_bytes": ev.graph_pool_bytes,
+            "capture_s": ev.capture_s}
+
+
 def phase_patterns(payload, factors) -> dict:
     """The search phase's configuration with the pattern axis (16 trials, 8
     per round, seed 0, each arm its own evaluator): the degenerate axis must
@@ -519,9 +680,12 @@ def phase_patterns(payload, factors) -> dict:
         fail("patterns: a pattern trial did not report meas")
     forwards = sum(out[a]["ev"].stats_forwards
                    for a in ("unstructured", "patterns"))
-    if counts["act_clip_count"] != 21 * forwards or forwards < 32:
-        fail(f"patterns: act_clip_count launches {counts} over {forwards} "
-             f"stats forwards")
+    passes = sum(out[a]["ev"].stats_passes
+                 for a in ("unstructured", "patterns"))
+    if counts["act_clip_count_batched"] != 21 * passes or \
+            counts["act_clip_count"] or forwards != 32 or passes != 4:
+        fail(f"patterns: act_clip_count launches {counts} over {passes} "
+             f"stats passes of {forwards} proposals")
     best = res.best_metrics
     picked = [r["pattern"] for r in out["best_assignment"]]
     return {"model": "resnet18", "img_res": RESNET18_IMG_RES, "iters": 16,
@@ -536,7 +700,12 @@ def phase_patterns(payload, factors) -> dict:
                 for k in ("acc", "spa", "thr", "dsp", "eff", "score")},
             "pattern_counts": {p: picked.count(p) for p in sorted(set(picked))},
             "best_assignment": out["best_assignment"],
-            "stats_forwards": forwards, "launches": counts}
+            "stats_forwards": forwards, "stats_passes": passes,
+            "graph_pool_bytes": {a: out[a]["ev"].graph_pool_bytes
+                                 for a in ("unstructured", "patterns")},
+            "capture_s": {a: out[a]["ev"].capture_s
+                          for a in ("unstructured", "patterns")},
+            "launches": counts}
 
 
 def phase_timing(rows, budget_ms: float = 30.0, plain: bool = True):
@@ -630,9 +799,11 @@ def phase_profile(payload, rows) -> dict:
     # one call of each wrapper as the main path makes it: nothing but the
     # kernel (and the matmul's split reduction) runs on the device
     from repro_torch.kernels import ops
-    x = torch.relu(torch.randn((8, 56, 56, 64), device="cuda"))
+    x = torch.relu(torch.randn((8, 56, 56, 8 * 64), device="cuda"))
+    taus = torch.full((8,), 0.3, device="cuda")
     sw, xm, _ = rows[9]["operands"]          # a split-K product
-    per_call = {"ops.act_clip": device_ops(lambda: ops.act_clip(x, 0.3)),
+    per_call = {"ops.act_clip_batched": device_ops(
+                    lambda: ops.act_clip_batched(x, taus)),
                 "SparseWeight.matmul": device_ops(lambda: sw.matmul(xm))}
     return {"device_busy_share": busy / wall_us, "busy_ms": busy / 1e3,
             "window_ms": wall_us / 1e3, "kernels": n_kernels,
@@ -644,24 +815,29 @@ PAPER_ITERS = 8            # hardware-aware TPE trials per model (the smoke
 
 
 def _clip_per_forward(cfg, dev, gen) -> dict:
-    """One stats forward's clip inputs for ``cfg`` at 224 x 224 (8 images),
-    each held against the plain version bit for bit, then timed as the main
-    path calls it (device time in a CUDA graph, summed over the inputs)."""
-    from repro_torch.kernels import act_clip, ops, ref
+    """One serial stats pass's clip inputs for ``cfg`` at 224 x 224 (8
+    images, one proposal), each through the batched entry as the paper's
+    passes call it, held against the plain version bit for bit (counts
+    too), then timed (device time in a CUDA graph, summed over the
+    inputs)."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bench_util import (clip_bound_ms, device_ms,
                                                 main_path_clip_shapes)
-    tau, ms, bound = 0.3, 0.0, 0.0
+    taus, ms, bound = torch.tensor([0.3], device=dev), 0.0, 0.0
     shapes = main_path_clip_shapes(CALIB_BATCH, cfg)
     for name, shape in shapes:
         x = torch.relu(torch.randn(shape, generator=gen)).to(dev)
-        y, cnt = ops.act_clip(x, tau)
-        y_ref, cnt_ref = ref.act_clip_count_ref(x, tau)
-        if not torch.equal(_bits(y), _bits(y_ref)) or int(cnt) != int(cnt_ref):
-            fail(f"paper: act_clip_count != plain at {cfg.name} {name} "
-                 f"{shape}")
-        ms += device_ms(lambda: ops.act_clip(x, tau), budget_ms=20.0)
-        bound += clip_bound_ms(x, act_clip.flat_tiles(x.numel())[2])[0]
-    return {"inputs": len(shapes), "ms": ms, "bound_ms": bound}
+        y, cnt = ops.act_clip_batched(x, taus)
+        y_ref, cnt_ref = ref.act_clip_count_batched_ref(x, taus)
+        if not torch.equal(_bits(y), _bits(y_ref)) or \
+                not torch.equal(cnt, cnt_ref):
+            fail(f"paper: act_clip_count_batched != plain at {cfg.name} "
+                 f"{name} {shape}")
+        ms += device_ms(lambda: ops.act_clip_batched(x, taus),
+                        budget_ms=20.0)
+        bound += clip_bound_ms(x, 1)[0]
+    return {"inputs": len(shapes), "proposals": 1, "ms": ms,
+            "bound_ms": bound}
 
 
 def phase_paper(dev) -> dict:
@@ -683,8 +859,8 @@ def phase_paper(dev) -> dict:
     from repro_torch.search_run import execute_winner
     gen = torch.Generator(device="cpu")
     gen.manual_seed(17)
-    models, launches, max_err = [], {"act_clip_count": 0,
-                                     "block_sparse_matmul": 0}, 0.0
+    models, launches, max_err = [], dict.fromkeys(
+        kernels.launch_counts(), 0), 0.0
     for cfg in PAPER_CNNS:
         t0 = time.perf_counter()
         params = trained_cnn(cfg, steps=20, device=dev)
@@ -706,11 +882,13 @@ def phase_paper(dev) -> dict:
         if bad or len(prods) != L + 1:
             fail(f"paper: {cfg.name}: {len(prods)} products for {L} prunable "
                  f"layers, disagreeing with plain: {bad}")
-        if counts["act_clip_count"] != L * ev.stats_forwards or \
+        if counts["act_clip_count_batched"] != L * ev.stats_passes or \
+                counts["act_clip_count"] or \
+                ev.stats_passes != PAPER_ITERS + 1 or \
                 ev.stats_forwards != PAPER_ITERS + 1:
-            fail(f"paper: {cfg.name}: act_clip_count launches "
-                 f"{counts['act_clip_count']} != {L} x {ev.stats_forwards} "
-                 f"stats forwards")
+            fail(f"paper: {cfg.name}: act_clip_count launches {counts} != "
+                 f"{L} x {ev.stats_passes} stats passes of "
+                 f"{ev.stats_forwards} proposals through the batched entry")
         if counts["block_sparse_matmul"] != len(prods):
             fail(f"paper: {cfg.name}: block_sparse_matmul launches "
                  f"{counts['block_sparse_matmul']} != {len(prods)} products")
@@ -743,7 +921,8 @@ def phase_paper(dev) -> dict:
                                  "sparse_eff_e9", "acc_proxy", "spa",
                                  "search_s")},
             "trials_per_s": PAPER_ITERS / r["search_s"],
-            "stats_forwards": ev.stats_forwards, "launches": counts,
+            "stats_forwards": ev.stats_forwards,
+            "stats_passes": ev.stats_passes, "launches": counts,
             "products": len(prods),
             "schedule_steps": sum(p["schedule_steps"] for p in prods),
             "dense_steps": sum(p["dense_steps"] for p in prods),
@@ -1102,10 +1281,10 @@ def phase_bench_twins(dev) -> dict:
     kernel; the roofline rows are the dry-run record; the fleet ``replay``
     and the chaos ``zero_fault`` and ``replay`` sections, whose serve path
     runs Qwen3-0.6B at full width in bf16 here, equal the same sections run
-    on the CPU at ``reduce_config`` size; quickstart launches
-    ``act_clip_count`` once per prunable layer per stats forward plus once
-    for its act 4, ``block_sparse_matmul`` at least once, and its product
-    is within 1e-4 of the plain version."""
+    on the CPU at ``reduce_config`` size; quickstart launches the clip's
+    batched entry once per prunable layer per stats pass and its single
+    entry once for its act 4, ``block_sparse_matmul`` at least once, and its
+    product is within 1e-4 of the plain version."""
     from benchmarks_torch import (chaos_bench, fleet_bench, lm_dse_bench,
                                   obs_bench, roofline_report, sim_bench)
     from repro_torch import kernels
@@ -1177,11 +1356,13 @@ def phase_bench_twins(dev) -> dict:
     q = _example("quickstart_torch").main(["--device", "cuda"])
     q_s = time.perf_counter() - t0
     q_launches = kernels.launch_counts()
-    clip_want = q["prunable"] * q["stats_forwards"] + 1
-    if q_launches["act_clip_count"] != clip_want or \
+    clip_want = q["prunable"] * q["stats_passes"]
+    if q_launches["act_clip_count"] != 1 or \
+            q_launches["act_clip_count_batched"] != clip_want or \
             q_launches["block_sparse_matmul"] < 1:
         fail(f"bench_twins: quickstart launched {q_launches}, expected "
-             f"act_clip_count {clip_want} and block_sparse_matmul >= 1")
+             f"act_clip_count 1, act_clip_count_batched {clip_want} and "
+             f"block_sparse_matmul >= 1")
     if not (q["max_abs_err_plain"] <= 1e-4 and q["max_abs_err"] <= 1e-4
             and q["clip_equals_plain"]):
         fail(f"bench_twins: quickstart's kernels disagree with their plain "
@@ -1227,9 +1408,10 @@ def phase_bench_twins(dev) -> dict:
             "replay_decode_ms_per_step": {
                 tag: t["ms_per_decode_step"] for tag, t in timing.items()},
             "quickstart": {"seconds": q_s, "launches": q_launches,
-                           "act_clip_count_expected": clip_want,
+                           "act_clip_count_batched_expected": clip_want,
                            "prunable": q["prunable"],
                            "stats_forwards": q["stats_forwards"],
+                           "stats_passes": q["stats_passes"],
                            "max_abs_err": q["max_abs_err"],
                            "max_abs_err_plain": q["max_abs_err_plain"],
                            "tolerance": 1e-4,
@@ -1915,8 +2097,9 @@ def main() -> None:
     dev = resolve_device("cuda")
     card = timed("device", phase_device)
     clip = timed("kernels_clip", phase_kernels_clip, dev)
+    clip_b = timed("kernels_clip_batched", phase_kernels_clip_batched, dev)
     mm = timed("kernels_matmul", phase_kernels_matmul, dev)
-    emit("kernels", kernels=[clip, mm])
+    emit("kernels", kernels=[clip, clip_b, mm])
     costs = timed("kernel_costs", phase_kernel_costs, dev, args.costs_out)
     emit("kernel_costs", card=card, **costs["tables"])
 
@@ -1925,8 +2108,11 @@ def main() -> None:
     payload = timed("search", phase_search, dev)
     rows = timed("execute", phase_execute, payload)
     counts = kernels.launch_counts()
-    if counts["act_clip_count"] < 21 or counts["block_sparse_matmul"] != 22:
+    if counts["act_clip_count_batched"] < 21 or counts["act_clip_count"] or \
+            counts["block_sparse_matmul"] != 22:
         fail(f"the main path did not go through the kernels: {counts}")
+    emit("search_gates", card=card,
+         **timed("search_gates", phase_search_gates, payload))
 
     factors = costs["main_path_table"]["decode_factors"]
     pat = timed("patterns", phase_patterns, payload, factors)
@@ -1964,17 +2150,21 @@ def main() -> None:
     emit("deterministic", card=card,
          **timed("deterministic", phase_deterministic))
 
+    q_launches = twins["quickstart"]["launches"]
     path_launches = {
-        "act_clip_count": {"search+execute": counts["act_clip_count"],
-                           "patterns": pat["launches"]["act_clip_count"],
-                           "paper": paper["launches"]["act_clip_count"],
-                           "quickstart": twins["quickstart"]["launches"][
-                               "act_clip_count"],
-                           "bench_twins": twins["spe_kernel_launches"],
-                           "train": train["spe_kernel_launches"][
-                               "act_clip_count"],
-                           "distributed": dist_["spe_kernel_launches"][
-                               "act_clip_count"]},
+        # the single entry runs on the quickstart path alone; every stats
+        # pass goes through the batched entry
+        "act_clip_count": {
+            "search+execute": counts["act_clip_count"],
+            "quickstart": q_launches["act_clip_count"],
+            "bench_twins": twins["spe_kernel_launches"],
+            "train": train["spe_kernel_launches"]["act_clip_count"],
+            "distributed": dist_["spe_kernel_launches"]["act_clip_count"]},
+        "act_clip_count_batched": {
+            "search+execute": counts["act_clip_count_batched"],
+            "patterns": pat["launches"]["act_clip_count_batched"],
+            "paper": paper["launches"]["act_clip_count_batched"],
+            "quickstart": q_launches["act_clip_count_batched"]},
         "block_sparse_matmul": {
             "search+execute": counts["block_sparse_matmul"],
             **{f"kernel_costs_{t}": v["block_sparse_matmul_launches"]
@@ -1989,13 +2179,23 @@ def main() -> None:
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
          "source": clip["source"], "replaces": clip["replaces"],
-         "launches": counts["act_clip_count"],
+         "launches": path_launches["act_clip_count"]["quickstart"],
+         "launches_path": "quickstart",
          "max_abs_err": clip["max_abs_err"], "ms": clip["ms"],
          "wrapper_ms": clip["wrapper_ms"], "plain_ms": clip["plain_ms"],
          "plain_device_ms": clip["plain_device_ms"],
          "bound_ms": clip["bound_ms"],
          "bound_by": clip["bound_by"], "library_ms": clip["library_ms"],
          "path_launches": path_launches["act_clip_count"]},
+        {"name": clip_b["name"], "route": clip_b["route"],
+         "source": clip_b["source"], "replaces": clip_b["replaces"],
+         "launches": counts["act_clip_count_batched"],
+         "max_abs_err": clip_b["max_abs_err"], "ms": clip_b["ms"],
+         "plain_ms": clip_b["plain_ms"],
+         "plain_device_ms": clip_b["plain_device_ms"],
+         "bound_ms": clip_b["bound_ms"], "bound_by": clip_b["bound_by"],
+         "library_ms": clip_b["library_ms"],
+         "path_launches": path_launches["act_clip_count_batched"]},
         {"name": mm["name"], "route": mm["route"], "source": mm["source"],
          "replaces": mm["replaces"],
          "launches": counts["block_sparse_matmul"],

@@ -3,8 +3,8 @@ the flow of ``examples/quickstart.py`` through ``repro_torch``.
 
 1. build a reduced LM, 2. one-shot magnitude-prune it (§III),
 3. run the hardware-aware search (Eq. 6) on a reduced ResNet-18 — every
-   stats forward clips and counts each prunable layer's input with the
-   ``act_clip_count`` kernel,
+   stats pass clips and counts each prunable layer's input with the
+   ``act_clip_count`` kernel's batched entry,
 4. execute a pruned matmul through the ``block_sparse_matmul`` kernel
    (§IV), and clip one activation with ``act_clip_count`` again.
 
@@ -24,10 +24,11 @@ import torch
 
 def main(argv=None) -> dict:
     """Runs the four acts and returns what they measured: the losses, the
-    search's best metrics, the evaluator's prunable layers and stats
-    forwards (``act_clip_count`` launches on the card: one per prunable
-    layer per stats forward, plus act 4's one), and act 3's largest
-    differences from ``x @ w`` and from the kernel's plain version."""
+    search's best metrics, the evaluator's prunable layers, stats forwards
+    and stats passes (on the card one launch of the clip's batched entry
+    per prunable layer per stats pass, and act 4's one of its single
+    entry), and act 3's largest differences from ``x @ w`` and from the
+    kernel's plain version."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -102,6 +103,7 @@ def main(argv=None) -> dict:
             "loss_sparse": float(loss_sparse),
             "best_metrics": dict(m), "prunable": len(ev.prunable),
             "stats_forwards": ev.stats_forwards,
+            "stats_passes": ev.stats_passes,
             "tile_density": sw.tile_density, "max_abs_err": err,
             "max_abs_err_plain": err_plain, "clip_zeros": n_zero,
             "clip_equals_plain": clip_ok}

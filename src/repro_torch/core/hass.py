@@ -10,6 +10,7 @@ the DSE (rate balancing + incrementing) under a resource budget, and score
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence
@@ -820,6 +821,22 @@ class LMEvaluator:
 # --------------------------------------------------------------------- #
 # CNN evaluator (the paper's own setting: ImageNet CNNs on the FPGA model)
 # --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _float32_convolutions():
+    """TF32 off and cuDNN's autotuner off for the block, restoring the
+    settings it found. On the card a float32 convolution is TF32 by default,
+    and the accuracy proxy and the measured sparsities are float32 results;
+    without the autotuner cuDNN picks one algorithm per shape, the same in a
+    graph's capture as in the eager pass before it."""
+    b = torch.backends
+    prev = b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = b.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark = prev
+
+
 @dataclass
 class CNNEvaluator:
     """Builds the Eq. 6 metric dict for one (S_w, S_a) proposal on a CNN.
@@ -827,13 +844,22 @@ class CNNEvaluator:
     Accuracy proxy: top-1 agreement with the dense reference on a calibration
     batch (no ImageNet at hand; the search structure is unchanged).
 
-    The prune + clipped forward of a proposal runs on the device that holds
+    The prune + clipped stats forward runs on the device that holds
     ``params`` and ``images`` (the card, unless the caller built them on the
-    CPU); with the activations on the card, every prunable layer's clip and
-    zero count is one launch of the ``act_clip_count`` kernel
-    (``models.cnn.forward``). The perf model, the DSE and Eq. 6 are numpy on
-    the host. Scalars follow the JAX package's float32 arithmetic so that the
-    measured sparsities agree with it on the same parameters.
+    CPU) as ONE program for a whole batch of proposals, the JAX package's
+    vmapped ``_eval_batch`` / ``_eval_p_batch``: every proposal's pruned
+    weights side by side, grouped convolutions over them
+    (``models.cnn.forward_batched``), and per prunable layer one launch of
+    the ``act_clip_count`` kernel's batched entry, which reads each
+    proposal's tau from device memory. On the card each batch shape (and
+    the pattern program apart from the seed one) is run eagerly once, then
+    captured into a CUDA graph over static input buffers and replayed from
+    then on; on the CPU the same program runs eagerly. A serial call is the
+    shape-1 program. ``evaluate_batch`` pads a ragged batch up to a shape
+    already built, by the JAX package's rule. The perf model, the DSE and
+    Eq. 6 are numpy on the host. Scalars follow the JAX package's float32
+    arithmetic so that the measured sparsities agree with it on the same
+    parameters.
 
     ``accel=True`` (default) enables the search-loop acceleration subsystem:
     per-layer sorted-|w| tables turn every tau_w quantile into an O(1)
@@ -883,25 +909,21 @@ class CNNEvaluator:
             if bad or not self.patterns:
                 raise ValueError(f"unknown patterns {bad or self.patterns}")
         self.device = self.images.device
-        if self.device.type == "cuda":
-            # a float32 convolution is TF32 by default on the card; the
-            # accuracy proxy and the measured sparsities are float32 results
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.layers = [l for l in cnn_layer_costs(self.cost_cfg or self.cfg)]
         self.prunable = [l for l in self.layers if l.prunable]
         self.names = [l.name for l in self.prunable]
         self.tiled = isinstance(self.hw, TPUModel)
-        with torch.no_grad():
+        with torch.no_grad(), _float32_convolutions():
             self.dense_logits = cnn.forward(
                 self.cfg, self.params, self.images).cpu().numpy()
             self.dense_pred = torch.from_numpy(
                 self.dense_logits.argmax(-1)).to(self.device)
             # activation magnitude samples per prunable layer (for tau_a
-            # quantiles); a host table, so a proposal's taus are host floats
+            # quantiles), on the device: a proposal's taus are gathered there
             samples = self._collect_act_samples()
-            self._act_q = np.stack(
+            self._act_q = torch.from_numpy(np.stack(
                 [samples[n] for n in self.names]).astype(np.float32)
+            ).to(self.device)
         self.dse_cache = DSECache() if self.accel else None
         dense = incremental_dse(self.layers, self.hw, self.budget,
                                 max_iters=self.dse_iters)
@@ -925,85 +947,171 @@ class CNNEvaluator:
         # pruner); any other axis dispatches per layer on the pattern code
         self._needs_pattern_eval = self.patterns is not None and \
             self.patterns != ("unstructured",)
-        # bookkeeping of the batched path: the batch sizes evaluated so far
-        # (nothing is compiled per shape here, so no batch is ever padded)
+        # batch-shape bucketing state, the JAX package's: ``batch_shapes``
+        # records every batch shape handed to the batched program (on the
+        # card: every graph ``evaluate_batch`` has built); ragged batches pad
+        # up to a shape already built when one is close enough
         self.batch_shapes: set = set()
         self.padded_batches: int = 0
-        #: stats forwards run so far (each is one ``act_clip_count`` launch
-        #: per prunable layer when the activations are on the card)
+        #: proposals evaluated so far (padding rows not counted)
         self.stats_forwards: int = 0
+        #: batched passes run so far: one ``act_clip_count`` launch per
+        #: prunable layer each when the activations are on the card
+        self.stats_passes: int = 0
+        #: (pattern program?, batch shape) -> (CountedGraph, static inputs,
+        #: static output); the card's graphs share one memory pool
+        self._graphs: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self.graphs_captured: int = 0
+        self.capture_s: float = 0.0
+        #: device memory the graphs' pool holds (growth of the allocator's
+        #: reserved bytes over each capture, the cache emptied around it)
+        self.graph_pool_bytes: int = 0
 
     # ------------------------------------------------------------------ #
-    # the device half: prune + clipped forward for ONE proposal
+    # the device half: one prune + clipped stats forward for B proposals
     # ------------------------------------------------------------------ #
-    def _prune_unstructured(self, n: str, w: torch.Tensor, s):
-        """-> (pruned w, measured all-zero-tile fraction or None)."""
+    def _prune_unstructured(self, n: str, w: torch.Tensor, s: torch.Tensor):
+        """(B,) sparsities -> (B pruned copies of w, measured all-zero-tile
+        fraction (B,), zero off the tiled model)."""
         if self.tiled:
             return pruning.tile_prune(w, s)
         tau_w = pruning.threshold_for_sparsity_sorted(self._asort[n], s) \
             if self._asort is not None else \
             pruning.threshold_for_sparsity(w, s)
-        return pruning.prune_tensor(w, tau_w), None
+        return pruning.prune_tensor(w, tau_w), torch.zeros_like(s)
 
-    def _prune_pattern(self, pname: str, n: str, w: torch.Tensor, s):
-        """One layer's pruner for a concrete pattern name; ``s`` is a numpy
-        float32 (the JAX package's traced scalars are float32)."""
+    def _prune_pattern(self, pname: str, n: str, w: torch.Tensor,
+                       s: torch.Tensor):
+        """One layer's pruner for a concrete pattern name, over (B,)
+        float32 sparsities (the JAX package's traced scalars)."""
         if pname == "unstructured":
             return self._prune_unstructured(n, w, s)
         if pname == "nm":
-            return pruning.nm_prune(w, pruning.nm_keep_for_sparsity(s)), None
+            return (pruning.nm_prune(w, pruning.nm_keep_for_sparsity(s)),
+                    torch.zeros_like(s))
         if pname == "hierarchical":
             # half the budget tile-level, residual intra-tile N:M
-            two = np.float32(2.0)
-            wt, swt = pruning.tile_prune(w, s / two)
-            r = np.clip(s / (two - s), np.float32(0.0), np.float32(1.0))
-            return pruning.nm_prune(wt, pruning.nm_keep_for_sparsity(r)), swt
-        return w, None                               # activation: dense
+            r = torch.clamp(s / (2.0 - s), 0.0, 1.0)
+            return pruning.hierarchical_prune(
+                w, s / 2.0, pruning.nm_keep_for_sparsity(r))
+        return w.expand((s.numel(),) + tuple(w.shape)), torch.zeros_like(s)
 
-    @torch.no_grad()
-    def _eval(self, s_w: np.ndarray, s_a: np.ndarray,
-              codes: Optional[np.ndarray] = None):
-        """One proposal: one-shot prune every prunable layer, run the clipped
-        stats forward, -> (acc, achieved s_w, measured s_a, measured tile
-        fraction), numpy. ``codes`` selects each layer's pattern (``None``:
-        the seed pruner everywhere)."""
-        one = np.float32(1.0)
-        nq = self._act_q.shape[1]
+    @_float32_convolutions()
+    def _device_pass(self, s_w: torch.Tensor, s_a: torch.Tensor,
+                     codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The batched program: (B, L) float32 ``s_w`` and ``s_a`` and (B, L)
+        int64 pattern ``codes`` (``None``: the seed pruner everywhere), all
+        on the device -> (B, 1 + 3L) float32 rows of accuracy, achieved s_w,
+        measured s_a and measured all-zero-tile fraction. No host value
+        enters it, so a CUDA graph captures it whole. The pattern program
+        computes every branch per layer and selects per proposal by code,
+        as the vmapped ``lax.switch`` does."""
+        B, nq = s_w.shape[0], self._act_q.shape[1]
         act_code = self.patterns.index("activation") \
             if codes is not None and "activation" in self.patterns else -1
-        pruned = dict(self.params)
-        achieved, tile_fracs, taus = [], [], {}
+        weights, achieved, tile_fracs, taus = {}, [], [], {}
         for i, n in enumerate(self.names):
             w = self.params[n]["w"]
-            sw_i, sa_i = s_w[i], s_a[i]
+            sw_i, sa_i = s_w[:, i], s_a[:, i]
             if codes is None:
                 w2, swt = self._prune_unstructured(n, w, sw_i)
             else:
-                if int(codes[i]) == act_code:
+                code = codes[:, i]
+                if act_code >= 0:
                     # activation pattern: the weight budget converts to
                     # extra realized activation sparsity
-                    sa_i = one - (one - sa_i) * \
-                        (one - np.clip(sw_i, np.float32(0.0), one))
-                w2, swt = self._prune_pattern(
-                    self.patterns[int(codes[i])], n, w, sw_i)
-            pruned[n] = dict(self.params[n], w=w2)
-            achieved.append((w2 == 0).to(torch.float32).mean())
-            tile_fracs.append(swt if swt is not None else
-                              torch.zeros((), device=w.device))
+                    sa_i = torch.where(
+                        code == act_code, 1.0 - (1.0 - sa_i) *
+                        (1.0 - torch.clamp(sw_i, 0.0, 1.0)), sa_i)
+                for k, pname in enumerate(self.patterns):
+                    wk, sk = self._prune_pattern(pname, n, w, sw_i)
+                    if k == 0:
+                        w2, swt = wk, sk
+                    else:
+                        sel = code == k
+                        w2 = torch.where(sel.reshape((B,) + (1,) * w.dim()),
+                                         wk, w2)
+                        swt = torch.where(sel, sk, swt)
+            weights[n] = w2
+            achieved.append((w2 == 0).reshape(B, -1).sum(
+                1, dtype=torch.float32) / w.numel())
+            tile_fracs.append(swt)
             # float32 product truncated, as the JAX package computes it
-            qidx = int(np.clip(np.int32(np.float32(sa_i) * np.float32(nq)),
-                               0, nq - 1))
-            taus[n] = float(self._act_q[i, qidx])
-        logits, stats = self._cnn.forward(self.cfg, pruned, self.images,
-                                          sparsity=taus, collect_stats=True)
-        self.stats_forwards += 1
-        acc = (logits.argmax(-1) == self.dense_pred).to(torch.float32).mean()
-        out = torch.stack([acc.reshape(()),
-                           *achieved, *[stats[n] for n in self.names],
-                           *tile_fracs]).cpu().numpy()     # one host copy
+            qidx = torch.clamp((sa_i * nq).to(torch.int32), 0, nq - 1)
+            taus[n] = self._act_q[i].gather(0, qidx.to(torch.int64))
+        logits, stats = self._cnn.forward_batched(self.cfg, self.params,
+                                                  weights, self.images, taus)
+        acc = (logits.argmax(-1) == self.dense_pred[:, None]).sum(
+            0, dtype=torch.float32) / logits.shape[0]
+        return torch.cat([acc[:, None], torch.stack(achieved, 1),
+                          torch.stack([stats[n] for n in self.names], 1),
+                          torch.stack(tile_fracs, 1)], 1)
+
+    def _build(self, key, inputs) -> torch.Tensor:
+        """The first pass of a batch shape on the card: run the program
+        eagerly on a side stream (cuDNN and the allocator settle; this
+        pass's result is the call's), then capture it into a CUDA graph
+        over the static ``inputs``, in the evaluator's memory pool."""
+        from repro_torch.kernels.graph import CountedGraph
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._device_pass(*inputs)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = CountedGraph(self._pool)
+        static_out = graph.capture(lambda: self._device_pass(*inputs))
+        torch.cuda.empty_cache()
+        self.graph_pool_bytes += \
+            torch.cuda.memory_reserved(self.device) - reserved
+        self._graphs[key] = (graph, inputs, static_out)
+        self.graphs_captured += 1
+        self.capture_s += time.perf_counter() - t0
+        return out
+
+    @torch.no_grad()
+    def _pass(self, s_w: np.ndarray, s_a: np.ndarray,
+              codes: Optional[np.ndarray], n_real: int):
+        """One batched pass over (B, L) float32 ``s_w``, ``s_a`` and (B, L)
+        ``codes`` (``None``: the seed program) -> (acc (B,), achieved s_w,
+        measured s_a, measured tile fraction (B, L)), numpy, from one host
+        copy. ``n_real`` of the B rows are proposals, the rest padding."""
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                (s_w, s_a) + (() if codes is None else
+                              (codes.astype(np.int64),))]
+        if self.device.type != "cuda":
+            out = self._device_pass(*host)
+        else:
+            key = (codes is not None, s_w.shape[0])
+            built = self._graphs.get(key)
+            if built is None:
+                out = self._build(key, [t.to(self.device) for t in host])
+            else:
+                graph, inputs, out = built
+                for dst, src in zip(inputs, host):
+                    dst.copy_(src)
+                graph.replay()
+        out = out.cpu().numpy()
+        self.stats_passes += 1
+        self.stats_forwards += n_real
         L = len(self.names)
-        return (out[0], out[1:1 + L], out[1 + L:1 + 2 * L],
-                out[1 + 2 * L:1 + 3 * L])
+        return (out[:, 0], out[:, 1:1 + L], out[:, 1 + L:1 + 2 * L],
+                out[:, 1 + 2 * L:1 + 3 * L])
+
+    def _eval(self, s_w: np.ndarray, s_a: np.ndarray,
+              codes: Optional[np.ndarray] = None):
+        """One proposal through the shape-1 program: -> (acc, achieved s_w,
+        measured s_a, measured tile fraction), numpy. ``codes`` selects each
+        layer's pattern (``None``: the seed pruner everywhere)."""
+        acc, sw, sa, swt = self._pass(
+            s_w[None], s_a[None], None if codes is None else codes[None], 1)
+        return acc[0], sw[0], sa[0], swt[0]
 
     def _collect_act_samples(self) -> Dict[str, np.ndarray]:
         """|activation| quantiles at each prunable layer's input (dense run):
@@ -1198,25 +1306,44 @@ class CNNEvaluator:
                              codes=codes)
 
     def evaluate_batch(self, xs: Sequence[np.ndarray]) -> List[Dict[str, float]]:
-        """Score a batch of proposals: the prune+forward runs proposal by
-        proposal (each has its own pruned weights, so the convolutions do not
-        batch), then ONE batched DSE scores all measured-sparsity rows.
-        Feeds ``hass_search(batch_size=...)``."""
+        """Score a batch of proposals with ONE batched prune+forward pass,
+        then ONE batched DSE over the measured-sparsity rows. Feeds
+        ``hass_search(batch_size=...)``.
+
+        Batch-shape bucketing (the JAX package's rule): a ragged batch (a
+        search's tail round) is padded up to the smallest batch shape
+        already built in [B, 2B] by repeating the last proposal; the padded
+        rows are dropped before returning, so they never reach
+        ``tell_batch`` — a whole fixed-size search builds exactly one
+        batched program."""
         if len(xs) == 0:
             return []
         B = len(xs)
-        self.batch_shapes.add(B)
-        rows = [self._eval_any(x) for x in xs]
-        accs = np.stack([r[0] for r in rows])
-        sw_meas = np.stack([r[1] for r in rows])
-        sa_meas = np.stack([r[2] for r in rows])
-        swt_meas = np.stack([r[3] for r in rows])
-        codes_rows = np.stack([r[4] for r in rows]) \
+        split = [self._split(x) for x in xs]
+        s_w = np.stack([s for s, _ in split])
+        s_a = np.stack([a for _, a in split])
+        codes_rows = np.stack([self._pattern_codes(x) for x in xs]) \
             if self.patterns is not None else None
+        codes = codes_rows if self._needs_pattern_eval else None
+        # bucket rule: pad up to the smallest already-built shape in [B, 2B]
+        # (a one-time build beats repeated >2x padding waste, e.g. a later
+        # smaller-batch search on a shared evaluator); otherwise build this
+        # exact size
+        bigger = [s for s in self.batch_shapes if B <= s <= 2 * B]
+        target = min(bigger) if bigger else B
+        if B < target:
+            def pad(a):
+                return np.concatenate([a, np.repeat(a[-1:], target - B, 0)])
+            s_w, s_a = pad(s_w), pad(s_a)
+            if codes is not None:
+                codes = pad(codes)
+            self.padded_batches += 1
+        self.batch_shapes.add(target)
+        accs, sw_meas, sa_meas, swt_meas = self._pass(s_w, s_a, codes, B)
         if B > 1 and self.dse_cache is not None and self.batch_dse \
                 and self.dse_engine == "auto":
-            return self._metrics_batch(accs, sw_meas, sa_meas,
-                                       swt_meas if self.tiled else None,
+            return self._metrics_batch(accs[:B], sw_meas[:B], sa_meas[:B],
+                                       swt_meas[:B] if self.tiled else None,
                                        codes_rows=codes_rows)
         return [self._metrics(float(accs[b]), sw_meas[b], sa_meas[b],
                               swt_meas[b] if self.tiled else None,

@@ -15,6 +15,13 @@ Every function takes tensors on any device and keeps its results there;
 scalars (``sparsity``, ``n``) may be Python numbers, numpy scalars or 0-d
 tensors. Scalar arithmetic is float32, as in the JAX package (x64 off), so
 that thresholds and masks agree with it on the same arrays.
+
+The thresholds and pruners also take B proposals at once, as the JAX
+package's do under ``vmap``: a (B,) tensor of sparsities (or taus, or keep
+counts) gives B results stacked on a new leading axis, each operation for
+operation the one a single proposal gets. Nothing here reads a tensor back
+to the host or copies a host value to the card, so a CUDA graph can capture
+them.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ def _scalar(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
     dtype = dtype or like.dtype
     if isinstance(v, torch.Tensor):
         return v.to(device=like.device, dtype=dtype)
-    return torch.tensor(float(v), dtype=dtype, device=like.device)
+    return torch.full((), float(v), dtype=dtype, device=like.device)
 
 
 # --------------------------------------------------------------------- #
@@ -43,8 +50,13 @@ def threshold_for_sparsity(w: torch.Tensor, sparsity) -> torch.Tensor:
 
 
 def prune_tensor(w: torch.Tensor, tau) -> torch.Tensor:
+    """Zero |w| < tau. A 1-D ``tau`` of B proposals' thresholds gives the B
+    pruned copies of ``w``, (B, *w.shape); any other ``tau`` broadcasts
+    against ``w``."""
     if not isinstance(tau, torch.Tensor):
         tau = _scalar(tau, w)
+    elif tau.dim() == 1:
+        w, tau = w.unsqueeze(0), tau.reshape((-1,) + (1,) * w.dim())
     return torch.where(w.abs() >= tau, w, torch.zeros_like(w))
 
 
@@ -57,7 +69,8 @@ def sorted_abs(w: torch.Tensor) -> torch.Tensor:
 
 
 def sorted_quantile(asort: torch.Tensor, q) -> torch.Tensor:
-    """Linear-interpolation quantile ``q`` of a pre-sorted 1-D tensor.
+    """Linear-interpolation quantile ``q`` (a scalar or a tensor of them) of
+    a pre-sorted 1-D tensor.
 
     Follows ``jax.numpy.quantile``'s arithmetic operation for operation, in
     the array's dtype: scale ``q * (n - 1)``, floor / ceil, clamp, two
@@ -65,7 +78,7 @@ def sorted_quantile(asort: torch.Tensor, q) -> torch.Tensor:
     another lerp form (and caps its input at 16M elements), so it is not
     used. Parity with the JAX package is tested on the same arrays."""
     q = _scalar(q, asort)
-    n = torch.tensor(asort.shape[0], dtype=asort.dtype, device=asort.device)
+    n = torch.full((), asort.shape[0], dtype=asort.dtype, device=asort.device)
     q = q * (n - 1)
     low = torch.floor(q)
     high = torch.ceil(q)
@@ -74,8 +87,8 @@ def sorted_quantile(asort: torch.Tensor, q) -> torch.Tensor:
     zero = torch.zeros((), dtype=asort.dtype, device=asort.device)
     low = torch.clamp(low, zero, n - 1)
     high = torch.clamp(high, zero, n - 1)
-    low_value = asort[low.to(torch.int32)]
-    high_value = asort[high.to(torch.int32)]
+    low_value = torch.take(asort, low.to(torch.int64))
+    high_value = torch.take(asort, high.to(torch.int64))
     return low_value * low_weight + high_value * high_weight
 
 
@@ -125,22 +138,25 @@ def tile_prune(w: torch.Tensor, sparsity, bk: int = 128, bn: int = 128):
     zero-padded for tile scoring, so boundary tiles rank slightly lower.
     Returns ``(pruned w, realized fraction of all-zero tiles)`` — realized
     is *measured* on the pruned tensor (quantile ties can under-shoot the
-    target; pre-existing zero tiles count), a 0-d float32 tensor."""
+    target; pre-existing zero tiles count), a 0-d float32 tensor. A (B,)
+    ``sparsity`` gives ((B, *w.shape), (B,)): the tile scores are ``w``'s,
+    computed once."""
     orig_shape = w.shape
     w2 = w if w.dim() == 2 else w.reshape(-1, w.shape[-1])
     K, N = w2.shape
     tiles, pk, pn = _tiles(w2, bk, bn)
     norms = tiles.abs().mean(dim=(1, 3))
     s = _scalar(sparsity, norms)
+    lead = s.shape                                  # () or (B,)
     tau = sorted_quantile(torch.sort(norms.reshape(-1)).values,
                           torch.clamp(s, 0.0, 1.0))
-    keep = norms >= tau
-    keep = torch.where(s <= 0.0, torch.ones_like(keep), keep)
-    pruned_tiles = tiles * keep[:, None, :, None].to(tiles.dtype)
-    nonzero = (pruned_tiles != 0).any(dim=3).any(dim=1)
-    zero_frac = 1.0 - nonzero.to(torch.float32).mean()
-    out = pruned_tiles.reshape(K + pk, N + pn)[:K, :N].reshape(orig_shape)
-    return out, zero_frac
+    keep = norms >= tau[..., None, None]
+    keep = torch.where(s[..., None, None] <= 0.0, torch.ones_like(keep), keep)
+    pruned_tiles = tiles * keep[..., :, None, :, None].to(tiles.dtype)
+    nonzero = (pruned_tiles != 0).any(dim=-1).any(dim=-2)
+    zero_frac = 1.0 - nonzero.to(torch.float32).mean(dim=(-2, -1))
+    out = pruned_tiles.reshape(lead + (K + pk, N + pn))[..., :K, :N]
+    return out.reshape(lead + tuple(orig_shape)), zero_frac
 
 
 # --------------------------------------------------------------------- #
@@ -186,18 +202,27 @@ def nm_prune(w: torch.Tensor, n, m: int = NM_M) -> torch.Tensor:
     largest-|w| and zero the rest. Exactly ``n`` survivors per group —
     ties break to the lower row index (stable descending argsort), so
     ``sparsity_of`` on a dense input is exactly ``1 - n/m`` when the
-    reduction dim divides ``m``."""
-    orig_shape = w.shape
-    w2 = w if w.dim() == 2 else w.reshape(-1, w.shape[-1])
-    K, N = w2.shape
+    reduction dim divides ``m``. A (B,) ``n`` gives the B pruned copies,
+    (B, *w.shape)."""
+    return _nm_prune(w, n, m, batched=False)
+
+
+def _nm_prune(w: torch.Tensor, n, m: int, batched: bool) -> torch.Tensor:
+    """``nm_prune`` of ``w``, or with ``batched`` of each of the B weights
+    stacked on ``w``'s leading axis, its own ``n[b]`` each."""
+    lead = tuple(w.shape[:1]) if batched else ()
+    shape = w.shape[len(lead):]
+    w2 = w.reshape(lead + (-1, shape[-1]))
+    K, N = w2.shape[-2:]
     pad = (-K) % m
     wp = F.pad(w2, (0, 0, 0, pad))
-    g = wp.reshape(-1, m, N)                        # (groups, m, N)
-    order = torch.argsort(g.abs(), dim=1, descending=True, stable=True)
-    ranks = torch.argsort(order, dim=1)             # rank of each element
-    keep = ranks < _scalar(n, g, torch.float32)
-    out = (g * keep.to(g.dtype)).reshape(K + pad, N)[:K]
-    return out.reshape(orig_shape)
+    g = wp.reshape(lead + (-1, m, N))               # (..., groups, m, N)
+    order = torch.argsort(g.abs(), dim=-2, descending=True, stable=True)
+    ranks = torch.argsort(order, dim=-2)            # rank of each element
+    nn = _scalar(n, g, torch.float32)
+    keep = ranks < nn.reshape(nn.shape + (1, 1, 1))
+    out = (g * keep.to(g.dtype)).reshape(keep.shape[:-3] + (K + pad, N))
+    return out[..., :K, :].reshape(keep.shape[:-3] + tuple(shape))
 
 
 def hierarchical_prune(w: torch.Tensor, tile_frac, n, m: int = NM_M,
@@ -207,9 +232,10 @@ def hierarchical_prune(w: torch.Tensor, tile_frac, n, m: int = NM_M,
     ``nm_prune(tile_prune(w, tile_frac)[0], n, m)``. Zeroed tiles keep
     all-zero groups under N:M (zeros rank last), so both levels survive in
     the output. Returns ``(pruned w, realized all-zero-tile fraction)`` like
-    ``tile_prune``."""
+    ``tile_prune``. (B,) ``tile_frac`` and ``n`` give B pruned copies, each
+    tile-pruned and then N:M-pruned with its own values."""
     wt, ztile = tile_prune(w, tile_frac, bk=bk, bn=bn)
-    return nm_prune(wt, n, m), ztile
+    return _nm_prune(wt, n, m, batched=wt.dim() > w.dim()), ztile
 
 
 def act_realize_pattern(s_w, s_a):

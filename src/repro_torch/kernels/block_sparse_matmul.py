@@ -22,12 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build, ref
-
-#: wrapper calls that launched the kernel in this process. One call is one
-#: device launch where the plan has one piece per column (``max_splits ==
-#: 1``), else two: the product into a workspace, then the ordered reduction.
-launches: int = 0
 
 
 def _build_tile_schedule_ref(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -250,7 +246,6 @@ def run_plan(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
     """The kernel: ``x (M, K) @ w[:K, :N]`` under ``dplan``. ``x`` is taken
     as it is (any M and K, no padded copy); ``w`` is the weight padded to
     whole (bk, bn) tiles. Returns a new f32 (M, N)."""
-    global launches
     M, K = x.shape
     plan = dplan.plan
     if plan.M != M or plan.N != N:
@@ -285,7 +280,7 @@ def run_plan(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
                  plan.tile[0], plan.tile[1], plan.max_splits,
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "block_sparse_matmul")
-    launches += 1
+    kernels._count("block_sparse_matmul")
     return out
 
 

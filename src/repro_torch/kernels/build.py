@@ -38,10 +38,13 @@ _PTR, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C signatures; every pointer and the stream is a ``c_void_p`` so that ctypes
 #: does not cut a 64-bit address to an int
 _CLIP = (_PTR, _F32, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR)
+_CLIP_BATCHED = (_PTR,) * 5 + (_LL, _INT, _INT, _INT, _INT, _PTR)
 _MATMUL = (_PTR,) * 7 + (_LL,) * 4 + (_INT,) * 7 + (_PTR,)
 _SIGNATURES = {
     "hass_act_clip_count_f32": _CLIP,
     "hass_act_clip_count_bf16": _CLIP,
+    "hass_act_clip_count_batched_f32": _CLIP_BATCHED,
+    "hass_act_clip_count_batched_bf16": _CLIP_BATCHED,
     "hass_block_sparse_matmul_f32": _MATMUL,
     "hass_block_sparse_matmul_bf16": _MATMUL,
 }

@@ -33,6 +33,16 @@
 // buffer, zeroed by a 4-byte memset queued just before the kernel, so one
 // call is two device operations, shares no state with any other call, and
 // its counts are deterministic.
+//
+// The batched entry is the TPU kernel under `vmap` (one float32 tau per
+// batch row, a batch axis on the grid): B proposals' activations in one
+// launch, each proposal's tau read from device memory (a replayed CUDA graph
+// sees each round's taus), one zero count per proposal. It takes the
+// activations as the evaluator's grouped convolutions lay them out, channels
+// of the B proposals side by side in each row, and counts each proposal's
+// columns where they lie, without a copy into proposal-major order. Blocks,
+// unrolled loads, the one-ticket last-block reduction and the memset of the
+// ticket on the call's stream are those of the single entry.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -269,6 +279,121 @@ int launch(const void* x, float tau, void* y, int* cnt, unsigned* ticket,
   return (int)cudaGetLastError();
 }
 
+// ---- the batched entry: B proposals' activations in one launch ---------- //
+// x: (R, B, C) row-major -- R rows, each holding C channels of each of B
+// proposals side by side (the evaluator's channel-stacked activations, as
+// its grouped convolutions make them). Proposal b's elements are clipped at
+// taus[b], read from device memory, and counted into cnt[b]. Block
+// (part, b) takes rows [part * rows_per_part, +rows_per_part) of proposal
+// b's columns; the last block to draw a ticket adds the blocks' words per
+// proposal, as the kernel above adds them per tile.
+template <typename T, bool kVectorised>
+__global__ void __launch_bounds__(kThreads)
+act_clip_count_batched_kernel(const T* __restrict__ x,
+                              const float* __restrict__ taus,
+                              T* __restrict__ y, int* __restrict__ cnt,
+                              int* __restrict__ partial,
+                              unsigned* __restrict__ ticket, long long R,
+                              int B, int C, int rows_per_part) {
+  constexpr int V = kVectorised ? Elem<T>::kVec : 1;
+  const int part = blockIdx.x, b = blockIdx.y, parts = gridDim.x;
+  const float tau = __ldg(taus + b);
+  const long long r0 = (long long)part * rows_per_part;
+  const long long rows_left = R - r0;
+  const int rows = (int)(rows_left < rows_per_part ? rows_left
+                                                   : rows_per_part);
+  const long long stride = (long long)B * C;
+  const T* xb = x + r0 * stride + (long long)b * C;
+  T* yb = y + r0 * stride + (long long)b * C;
+  const int per_row = C / V;
+  const int nv = rows * per_row;
+  int zeros = 0;
+  for (int e0 = threadIdx.x; e0 < nv; e0 += kUnroll * kThreads) {
+    long long off[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int e = e0 + i * kThreads;
+      const int r = e / per_row;
+      off[i] = r * stride + (long long)(e - r * per_row) * V;
+    }
+    if (kVectorised) {
+      uint4 v[kUnroll];
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (e0 + i * kThreads < nv)
+          v[i] = *reinterpret_cast<const uint4*>(xb + off[i]);
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (e0 + i * kThreads < nv) {
+          zeros += Elem<T>::clip_vec(v[i], tau);
+          *reinterpret_cast<uint4*>(yb + off[i]) = v[i];
+        }
+    } else {
+      T v[kUnroll];
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (e0 + i * kThreads < nv) v[i] = xb[off[i]];
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (e0 + i * kThreads < nv) {
+          zeros += Elem<T>::clip(v[i], tau);
+          yb[off[i]] = v[i];
+        }
+    }
+  }
+
+  __shared__ int warp_sums[kThreads / 32];
+  __shared__ bool last;
+  const int total = block_sum(zeros, warp_sums);
+  if (threadIdx.x == 0) {
+    partial[b * parts + part] = total;
+    __threadfence();             // the word is visible before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: each proposal's count, up to kThreads proposals a round
+  __threadfence();
+  __shared__ int sums[kThreads];
+  for (int base = 0; base < B; base += kThreads) {
+    const int nb = min(kThreads, B - base);
+    if (threadIdx.x < nb) sums[threadIdx.x] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb * parts; i += kThreads)
+      atomicAdd(sums + i / parts, __ldcg(partial + base * parts + i));
+    __syncthreads();
+    if (threadIdx.x < nb) cnt[base + threadIdx.x] = sums[threadIdx.x];
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_batched(const void* x, const float* taus, void* y, int* cnt,
+                   unsigned* ticket, long long R, int B, int C,
+                   int rows_per_part, int vectorised, cudaStream_t stream) {
+  const int V = vectorised ? (int)(16 / sizeof(T)) : 1;
+  if (R <= 0 || B <= 0 || B > 65535 || C <= 0 || C % V ||
+      rows_per_part <= 0 || R * C > 2147483647LL ||
+      (long long)rows_per_part * (C / V) > 2147483647LL - 4LL * kThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long parts = (R + rows_per_part - 1) / rows_per_part;
+  if (parts * B > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)parts, (unsigned)B);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const cudaError_t zeroed = cudaMemsetAsync(ticket, 0, sizeof(unsigned),
+                                             stream);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  if (vectorised) {
+    act_clip_count_batched_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        xp, taus, yp, cnt, cnt + B, ticket, R, B, C, rows_per_part);
+  } else {
+    act_clip_count_batched_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        xp, taus, yp, cnt, cnt + B, ticket, R, B, C, rows_per_part);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface. x, y: the first n elements of an (M, N) row-major view
@@ -297,4 +422,32 @@ extern "C" int hass_act_clip_count_bf16(const void* x, float tau, void* y,
                                         void* stream) {
   return launch<__nv_bfloat16>(x, tau, y, cnt, ticket, n, M, N, bm, bn,
                                vectorised, static_cast<cudaStream_t>(stream));
+}
+
+// Batched entry (the TPU kernel under vmap: one float32 tau per batch row).
+// x, y: (R, B, C) row-major, proposal b's elements at [r, b, :]. taus: B
+// float32 in device memory, so that a captured CUDA graph reads each
+// replay's taus. cnt: B + B * ceil(R / rows_per_part) int32 -- each
+// proposal's zero count, then scratch for the blocks' partial counts.
+// ticket: one word of scratch, zeroed here. `vectorised` != 0 promises
+// 16-byte aligned x and y and C a multiple of the 16-byte vector width.
+// Queues a 4-byte memset and one kernel on `stream`, allocates nothing,
+// does not synchronise; returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape it does not take).
+extern "C" int hass_act_clip_count_batched_f32(
+    const void* x, const void* taus, void* y, int* cnt, unsigned* ticket,
+    long long R, int B, int C, int rows_per_part, int vectorised,
+    void* stream) {
+  return launch_batched<float>(x, static_cast<const float*>(taus), y, cnt,
+                               ticket, R, B, C, rows_per_part, vectorised,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int hass_act_clip_count_batched_bf16(
+    const void* x, const void* taus, void* y, int* cnt, unsigned* ticket,
+    long long R, int B, int C, int rows_per_part, int vectorised,
+    void* stream) {
+  return launch_batched<__nv_bfloat16>(
+      x, static_cast<const float*>(taus), y, cnt, ticket, R, B, C,
+      rows_per_part, vectorised, static_cast<cudaStream_t>(stream));
 }

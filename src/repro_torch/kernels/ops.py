@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.act_clip import act_clip_count_flat
+from repro_torch.kernels.act_clip import (act_clip_count_batched,
+                                         act_clip_count_flat)
 from repro_torch.kernels.block_sparse_matmul import (DevicePlan,
                                                      build_tile_schedule,
                                                      make_plan, run_plan)
@@ -96,3 +97,11 @@ def act_clip(x: torch.Tensor, tau, *, bm: int = 256, bn: int = 256):
     """
     y, _, total = act_clip_count_flat(x, tau, bm=bm, bn=bn)
     return y, total
+
+
+#: The clip of B proposals at once: ``x``'s last dim holds their channels
+#: side by side (B * C), ``taus`` one float32 tau each on ``x``'s device ->
+#: (y, zero count per proposal). On the card one launch of the kernel's
+#: batched entry, which reads the taus where they lie: a captured CUDA graph
+#: clips each replay at that replay's taus.
+act_clip_batched = act_clip_count_batched

@@ -74,6 +74,20 @@ def act_clip_count_flat_ref(x: torch.Tensor, tau, bm: int, cols: int):
         z.sum(dtype=torch.int32)
 
 
+def act_clip_count_batched_ref(x: torch.Tensor, taus: torch.Tensor):
+    """x: (..., B * C), the channels of B proposals side by side in its last
+    dim; taus: (B,) -> (clipped x, zero count per proposal as a (B,) int32
+    tensor): the batched entry's own outputs. Proposal b's elements, the
+    columns [b * C, (b + 1) * C) of every row, are clipped at taus[b] (in
+    float32, as ``act_clip_ref``)."""
+    B = taus.numel()
+    xs = x.reshape(-1, B, x.shape[-1] // B)
+    keep = xs.to(torch.float32).abs() >= \
+        taus.to(device=x.device, dtype=torch.float32).reshape(1, B, 1)
+    y = torch.where(keep, xs, torch.zeros_like(xs))
+    return y.reshape(x.shape), (y == 0).sum(dim=(0, 2), dtype=torch.int32)
+
+
 def block_sparse_matmul_plan_ref(x: torch.Tensor, w: torch.Tensor,
                                  indices, items, splits, tile, N: int,
                                  bk: int, bn: int, chunk: int = 16

@@ -284,16 +284,6 @@ def _conv(x, w, stride: int, pad: int, groups: int):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _clip_and_count(x, tau, stats, name):
-    """The SPE clip unit and its zero counter in one pass: on a CUDA tensor
-    this is the ``act_clip_count`` kernel, on a CPU tensor its plain version.
-    ``tau=None`` clips at 0, which leaves ``x`` as it is and counts the zeros
-    already there."""
-    y, cnt = ops.act_clip(x, 0.0 if tau is None else tau)
-    stats[name] = cnt.to(torch.float32) / x.numel()
-    return y
-
-
 def forward(cfg: ModelConfig, params, images, *, sparsity=None,
             collect_stats=False, return_intermediates=False):
     """images: (B, H, W, 3). sparsity: {layer_name: tau_a}.
@@ -301,19 +291,30 @@ def forward(cfg: ModelConfig, params, images, *, sparsity=None,
     Returns logits, or (logits, stats) with per-prunable-layer input zero
     fraction when collect_stats (feeds the paper's calibration pass), or
     (logits, outs) with every layer output when return_intermediates.
+    The stats forward is ``forward_batched`` over one proposal: ``params``'
+    own weights, a prunable layer without a tau clipped at 0 (which counts
+    the zeros already there).
     """
+    if collect_stats and not return_intermediates:
+        weights, taus = {}, {}
+        for s in build_specs(cfg):
+            tau = sparsity.get(s.name) if sparsity else None
+            if s.prunable:
+                weights[s.name] = params[s.name]["w"][None]
+            if s.prunable or tau is not None:
+                taus[s.name] = torch.as_tensor(
+                    0.0 if tau is None else tau,
+                    dtype=torch.float32).reshape(1).to(images.device)
+        logits, stats = forward_batched(cfg, params, weights, images, taus)
+        return logits[:, 0], {n: v[0] for n, v in stats.items()}
     specs = build_specs(cfg)
     outs: Dict[str, torch.Tensor] = {INPUT: images.to(torch.float32)}
-    stats: Dict[str, torch.Tensor] = {}
     last = INPUT
     for s in specs:
         x = outs[s.input_from or last]
         tau = sparsity.get(s.name) if sparsity else None
         if s.kind in ("conv", "dwconv"):
-            if collect_stats and s.prunable:
-                x = _clip_and_count(x, tau, stats, s.name)
-            else:
-                x = act_clip(x, tau)
+            x = act_clip(x, tau)
             p = params[s.name]
             groups = s.cout if s.kind == "dwconv" else 1
             x = _conv(x, p["w"], s.stride, (s.k - 1) // 2, groups)
@@ -328,10 +329,7 @@ def forward(cfg: ModelConfig, params, images, *, sparsity=None,
         elif s.kind == "gap":
             x = x.mean(dim=(1, 2))
         elif s.kind == "linear":
-            if collect_stats and s.prunable:
-                x = _clip_and_count(x, tau, stats, s.name)
-            else:
-                x = act_clip(x, tau)
+            x = act_clip(x, tau)
             p = params[s.name]
             x = _act(x @ p["w"] + p["b"], s.act)
         elif s.kind == "se":
@@ -345,9 +343,73 @@ def forward(cfg: ModelConfig, params, images, *, sparsity=None,
         outs[s.name] = x
         last = s.name
     logits = outs[last]
-    if return_intermediates:
-        return logits, outs
-    return (logits, stats) if collect_stats else logits
+    return (logits, outs) if return_intermediates else logits
+
+
+def forward_batched(cfg: ModelConfig, params, weights, images, taus):
+    """The clipped stats forward of B proposals at once (the JAX package's
+    ``forward(..., collect_stats=True)`` under ``vmap``).
+
+    ``weights`` maps every prunable layer to its B pruned weights stacked on
+    a leading axis (the rest of ``params`` is shared), ``taus`` to its (B,)
+    float32 clip thresholds on the images' device (a tau for a layer that
+    is not prunable clips its input without counting). Every activation
+    holds the B proposals' channels side by side in its last dim, NHWC with
+    B * C channels: a convolution is one grouped convolution (``groups=B``,
+    B * cout for ``dwconv``), a linear layer one batched product, SE,
+    pooling and residual adds act per channel and so per proposal, and a
+    prunable layer's clip and zero count is one ``ops.act_clip_batched``
+    call. Returns (logits (N, B, classes), {layer: (B,) input zero
+    fraction}).
+    """
+    B = next(iter(taus.values())).numel()
+    specs = build_specs(cfg)
+    x = images.to(torch.float32)
+    outs: Dict[str, torch.Tensor] = {INPUT: x.repeat(1, 1, 1, B)}
+    stats: Dict[str, torch.Tensor] = {}
+    last = INPUT
+    for s in specs:
+        x = outs[s.input_from or last]
+        p = params.get(s.name)
+        if s.prunable:
+            x, cnt = ops.act_clip_batched(x, taus[s.name])
+            stats[s.name] = cnt.to(torch.float32) / (x.numel() // B)
+        elif s.name in taus:
+            x = act_clip(x, taus[s.name].repeat_interleave(x.shape[-1] // B))
+        if s.kind in ("conv", "dwconv"):
+            if s.kind == "conv":    # (B, k, k, cin, cout) -> HWIO, B groups
+                w = weights[s.name].permute(1, 2, 3, 0, 4).reshape(
+                    s.k, s.k, s.cin, B * s.cout)
+                groups = B
+            else:
+                w = p["w"].repeat(1, 1, 1, B)
+                groups = B * s.cout
+            x = _conv(x, w, s.stride, (s.k - 1) // 2, groups)
+            x = _act(x + p["b"].repeat(B), s.act)
+        elif s.kind == "pool":
+            (t, b), (l, r) = (_same_pads(x.shape[1], s.k, s.stride),
+                              _same_pads(x.shape[2], s.k, s.stride))
+            xp = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b),
+                       value=float("-inf"))
+            x = F.max_pool2d(xp, s.k, s.stride).permute(0, 2, 3, 1) \
+                .contiguous()
+        elif s.kind == "gap":
+            x = x.mean(dim=(1, 2))
+        elif s.kind == "linear":           # (N, B * cin) -> (B, N, cin)
+            xb = x.reshape(-1, B, s.cin).transpose(0, 1)
+            y = _act(torch.bmm(xb, weights[s.name]) + p["b"], s.act)
+            x = y.transpose(0, 1).reshape(-1, B * s.cout)
+        elif s.kind == "se":
+            z = x.mean(dim=(1, 2)).reshape(-1, B, s.cin)
+            z = F.relu(z @ p["w1"] + p["b1"])
+            z = torch.sigmoid(z @ p["w2"] + p["b2"]).reshape(-1, B * s.cin)
+            x = x * z[:, None, None, :]
+        elif s.kind == "add":
+            x = _act(x + outs[s.residual_from], s.act)
+        outs[s.name] = x
+        last = s.name
+    logits = outs[last]
+    return logits.reshape(logits.shape[0], B, -1), stats
 
 
 def loss(cfg: ModelConfig, params, batch, *, sparsity=None, remat=None):

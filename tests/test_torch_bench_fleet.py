@@ -52,6 +52,7 @@ def fleet_port(tmp_path_factory):
         payload = fleet_bench.run(smoke=True, device="cpu",
                                   out_dir=str(out))
         assert kernels.launch_counts() == {"act_clip_count": 0,
+                                           "act_clip_count_batched": 0,
                                            "block_sparse_matmul": 0}
     return payload, load(out / "fleet_bench_cpu.json")
 
@@ -119,6 +120,7 @@ def test_chaos_bench_payload_equals_the_jax_script(tmp_path):
     kernels.reset_launch_counts()
     got = chaos_bench.run(smoke=True, device="cpu", out_dir=str(tmp_path))
     assert kernels.launch_counts() == {"act_clip_count": 0,
+                                       "act_clip_count_batched": 0,
                                        "block_sparse_matmul": 0}
     assert load(tmp_path / "chaos_bench_cpu.json") == jsonable(got)
     assert without(got, chaos_bench.WALL_CLOCK) == dict(want, smoke=True)

@@ -300,6 +300,7 @@ def test_runner_on_the_cpu_writes_its_summary(tmp_path):
     s = _load(tmp_path / "bench_summary_cpu.json")
     assert [j["job"] for j in s["jobs"]] == ["fig4", "fig6"]
     assert all(j["ok"] and j["launches"] == {"act_clip_count": 0,
+                                              "act_clip_count_batched": 0,
                                               "block_sparse_matmul": 0}
                for j in s["jobs"])
     assert s["failures"] == 0 and s["img_res"] == 64

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs.paper_cnns import PAPER_CNNS, RESNET18
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import launch_counts, ops, ref
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels.act_clip import (act_clip_count, act_clip_count_flat,
                                          flat_tiles)
@@ -49,14 +49,13 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tau", [0.0, 0.2995, 0.5, 2.0])
 def test_cuda_act_clip_bit_equal(cuda, shape, dtype, tau):
-    from repro_torch.kernels import act_clip as mod
     x = _to_torch(RNG.normal(size=shape), dtype, cuda)
     x.view(-1)[::7] = 0.0
     x.view(-1)[3::11] = -0.0
-    before = mod.launches
+    before = launch_counts()["act_clip_count"]
     y, cnt = ops.act_clip(x, tau)
     torch.cuda.synchronize()
-    assert mod.launches == before + 1
+    assert launch_counts()["act_clip_count"] == before + 1
     y_ref, cnt_ref = ref.act_clip_count_ref(x, tau)
     bits = torch.int32 if dtype == "float32" else torch.int16
     assert torch.equal(y.view(bits), y_ref.view(bits))
@@ -81,10 +80,10 @@ def test_cuda_block_sparse_matmul(cuda, M, K, N, dtype):
         w = w / np.sqrt(K)
     w = _to_torch(w, dtype, cuda)
     sw = ops.SparseWeight(w)
-    before = bsm.launches
+    before = launch_counts()["block_sparse_matmul"]
     out = sw.matmul(x)
     torch.cuda.synchronize()
-    assert bsm.launches == before + 1
+    assert launch_counts()["block_sparse_matmul"] == before + 1
     oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
     tol = 1e-4 if dtype == "float32" else 2e-1
     np.testing.assert_allclose(_np(out), _np(oracle), atol=tol, rtol=tol)
@@ -149,11 +148,11 @@ def test_cuda_block_sparse_matmul_paper_cnn_products(cuda, M, K, N):
     x = _to_torch(RNG.normal(size=(M, K)), "float32", cuda)
     w = _to_torch(_tile_sparse_weight(K, N) / np.sqrt(K), "float32", cuda)
     sw = ops.SparseWeight(w)
-    before = bsm.launches
+    before = launch_counts()["block_sparse_matmul"]
     out = sw.matmul(x)
     oracle = ref.block_sparse_matmul_ref(x, w, sw.mask, 128, 128)
     torch.cuda.synchronize()
-    assert bsm.launches == before + 1
+    assert launch_counts()["block_sparse_matmul"] == before + 1
     assert out.shape == (M, N) and bool(torch.isfinite(out).all())
     np.testing.assert_allclose(_np(out), _np(oracle), atol=1e-4, rtol=1e-4)
 
@@ -310,3 +309,124 @@ def test_cuda_act_clip_calls_share_no_state(cuda):
         eager = ops.act_clip(xs[(i + 1) % 4], 0.5)[1]
         torch.cuda.synchronize()
         assert int(total) == want[i] and int(eager) == want[(i + 1) % 4]
+
+
+def _stacked(rows_shape, B, C, dtype, device):
+    """B proposals' activations side by side in the last dim, zeros and
+    negative zeros planted."""
+    x = _to_torch(RNG.normal(size=rows_shape + (B * C,)), dtype, device)
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[3::11] = -0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_shape,B,C", [
+    ((8, 224, 224), 8, 3),        # the stem's input: not vectorisable
+    ((8, 56, 56), 8, 64), ((8, 7, 7), 8, 512), ((8,), 8, 512),
+    ((8, 28, 28), 3, 128), ((1,), 1, 9), ((37,), 5, 6), ((3, 5), 2, 20),
+    ((8, 14, 14), 300, 8)])       # more proposals than the last block's round
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_act_clip_batched_bit_equal(cuda, rows_shape, B, C, dtype):
+    """The batched entry against its plain version: y bit for bit, each
+    proposal's count exactly, at taus that include 0 (counts the zeros
+    already there, -0.0 among them) and one that is not bf16-exact."""
+    x = _stacked(rows_shape, B, C, dtype, cuda)
+    taus = torch.from_numpy(np.resize(np.array([0.0, 0.2995, 0.5, 2.0],
+                                               np.float32), B)).to(cuda)
+    before = launch_counts()["act_clip_count_batched"]
+    y, cnt = ops.act_clip_batched(x, taus)
+    torch.cuda.synchronize()
+    assert launch_counts()["act_clip_count_batched"] == before + 1
+    y_ref, cnt_ref = ref.act_clip_count_batched_ref(x, taus)
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    assert torch.equal(y.view(bits), y_ref.view(bits))
+    assert torch.equal(cnt, cnt_ref)
+    # each proposal's count is the single entry's count on its own columns
+    xs = x.reshape(-1, B, C)
+    for b in range(min(B, 4)):
+        want = ref.act_clip_count_ref(xs[:, b].contiguous(),
+                                      float(taus[b]))[1]
+        assert int(cnt[b]) == int(want)
+
+
+@pytest.mark.cuda
+def test_cuda_act_clip_batched_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 24), device=cuda)
+    with pytest.raises(TypeError):                  # taus not float32
+        ops.act_clip_batched(x, torch.zeros(3, device=cuda,
+                                            dtype=torch.float64))
+    with pytest.raises(ValueError):                 # taus on the host
+        ops.act_clip_batched(x, torch.zeros(3))
+    with pytest.raises(ValueError):                 # 24 is not 5 x C
+        ops.act_clip_batched(x, torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError):                 # not contiguous
+        ops.act_clip_batched(torch.zeros((4, 48), device=cuda)[:, ::2],
+                             torch.zeros(3, device=cuda))
+
+
+@pytest.fixture(scope="module")
+def cuda_evaluator():
+    """A reduced ResNet-18 evaluator on the card (32 x 32, 8 images)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.configs import reduce_config
+    from repro_torch.core.hass import CNNEvaluator
+    from repro_torch.core.perf_model import FPGAModel
+    from repro_torch.models import cnn
+    cfg = reduce_config(RESNET18)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = cnn.init_params(cfg, gen, device="cuda")
+    images = torch.randn((8, cfg.img_res, cfg.img_res, 3),
+                         generator=gen).to("cuda")
+    return CNNEvaluator(cfg, params, images, FPGAModel(), budget=4096,
+                        dse_iters=150)
+
+
+def _rounds(L, B, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 0.9, (B, L)).astype(np.float32),
+            rng.uniform(0, 0.9, (B, L)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_cuda_captured_replay_equals_the_eager_pass(cuda_evaluator, B):
+    """A shape's first pass runs eagerly and captures the graph; later
+    passes replay it: bit-equal to the same batched program run eagerly,
+    at each replay's own proposals."""
+    ev = cuda_evaluator
+    L = len(ev.names)
+    ev._pass(*_rounds(L, B, 0), None, B)             # eager + capture
+    assert (False, B) in ev._graphs
+    for seed in (1, 2):
+        s_w, s_a = _rounds(L, B, seed)
+        replayed = ev._pass(s_w, s_a, None, B)
+        with torch.no_grad():
+            eager = ev._device_pass(torch.from_numpy(s_w).to(ev.device),
+                                    torch.from_numpy(s_a).to(ev.device))
+        eager = eager.cpu().numpy()
+        got = np.concatenate([replayed[0][:, None], *replayed[1:]], 1)
+        assert np.array_equal(got.view(np.int32), eager.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_replays_count_their_launches(cuda_evaluator):
+    """Batched-entry launches == prunable layers x passes over N replays:
+    the launches a graph holds count at each replay, never at capture."""
+    from repro_torch import kernels
+    ev = cuda_evaluator
+    L = len(ev.names)
+    kernels.reset_launch_counts()
+    passes = ev.stats_passes
+    for seed in range(5):
+        ev._pass(*_rounds(L, 3, seed), None, 3)
+    torch.cuda.synchronize()
+    assert ev.stats_passes == passes + 5
+    assert kernels.launch_counts() == {"act_clip_count": 0,
+                                       "act_clip_count_batched": 5 * L,
+                                       "block_sparse_matmul": 0}
+    graph = ev._graphs[(False, 3)][0]
+    assert graph.held == {"act_clip_count": 0, "act_clip_count_batched": L,
+                          "block_sparse_matmul": 0}

@@ -59,6 +59,7 @@ def test_quickstart_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "quickstart OK" in out and "== 4/4" in out
     assert kernels.launch_counts() == {"act_clip_count": 0,
+                                       "act_clip_count_batched": 0,
                                        "block_sparse_matmul": 0}
     assert r["device"] == "cpu" and r["prunable"] > 0
     assert r["stats_forwards"] >= 8          # one per trial at least

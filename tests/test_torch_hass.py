@@ -86,10 +86,11 @@ def test_evaluator_set_up_matches_jax():
     np.testing.assert_allclose(ev.dense_logits, jev.dense_logits,
                                rtol=2e-4, atol=2e-4)
     assert np.array_equal(ev.dense_pred.numpy(), np.asarray(jev.dense_pred))
-    # the tau_a tables are np.quantile of activations that agree to 2e-4
-    np.testing.assert_allclose(ev._act_q, np.asarray(jev._act_q),
+    # the tau_a tables are np.quantile of activations that agree to 2e-4;
+    # the port keeps its table on the evaluator's device, in float32
+    np.testing.assert_allclose(ev._act_q.cpu().numpy(), np.asarray(jev._act_q),
                                rtol=2e-4, atol=2e-4)
-    assert ev._act_q.dtype == np.float32
+    assert ev._act_q.dtype == torch.float32 and ev._act_q.device == ev.device
 
 
 @pytest.mark.parametrize("k", [0, 1, 2])
@@ -136,18 +137,21 @@ def test_dense_proposal_and_metric_contract():
 
 
 def test_batched_equals_serial_exactly():
-    """Nothing is traced or compiled per batch shape, so the batched round
-    (proposal-by-proposal forward, one batched DSE) reproduces the serial
-    metrics bit for bit."""
+    """The JAX package's contract for its vmapped program: one batched pass
+    scores B proposals as the serial (shape-1) program does within rel 1e-3
+    / abs 1e-6 (grouped convolutions may sum in another order), and one
+    shape's program is deterministic: the same round twice is bit-equal."""
     ev = _ev()
     xs = [_proposal(k) for k in range(3)]
-    before = ev.stats_forwards
+    before, passes = ev.stats_forwards, ev.stats_passes
     batch = ev.evaluate_batch(xs)
-    assert ev.stats_forwards == before + 3
+    assert ev.stats_forwards == before + 3 and ev.stats_passes == passes + 1
     assert ev.evaluate_batch([]) == [] and 3 in ev.batch_shapes
-    assert ev.padded_batches == 0
+    assert ev.evaluate_batch(xs) == batch
     for x, mb in zip(xs, batch):
-        assert mb == ev(x)
+        ms = ev(x)
+        for k in ms:
+            assert mb[k] == pytest.approx(ms[k], rel=1e-3, abs=1e-6), k
 
 
 @pytest.mark.parametrize("hardware_aware", [True, False])
