@@ -61,12 +61,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
            stats pass's clip inputs through the batched entry, checked
            against its plain version and timed
   serve    Qwen3-0.6B at full width through ServeSession: 16 requests of 128
-           prompt tokens, 8 slots, bf16; four gates, step and prefill times
+           prompt tokens, 8 slots, bf16; the session decodes through one
+           CUDA graph per cache shape, captured once and replayed per
+           token; four gates (teacher forcing, open loop == generate,
+           determinism, ragged rows) and gate (a): 8 replayed steps == the
+           eager api.decode_step from the same prefill, logits and every
+           cache leaf bit for bit (else within 1e-3 x max |logits|, said
+           so); prefill, eager and replayed step times, tokens/s, captures,
+           capture seconds, graph-pool bytes, device operations and busy
+           share over 8 eager and 8 replayed steps
   fleet    the serve phase's session again, open loop: the busiest replica's
            stream of an autoscale policy search, and a degraded step schedule
            with deadlines, each against fleet.open_loop_schedule's clocks
+  serve_families  every LM family at reduce_config size on the card (Qwen3,
+           Mixtral with its 8-slot sliding-window ring, DeepSeek-V3's MLA +
+           MoE, Zamba2, RWKV6, Whisper): a buffer set captured from a
+           6-token prefill, then 8 replayed decode steps bit-equal to the
+           eager step, every cache leaf too
   bench_twins  six benchmark twins of benchmarks_torch/, each
-           run(smoke=True) on the card called directly: roofline (over one
+           run(smoke=True) on the card called directly (obs in the
+           reference's full mode, its overhead gate the least of 5 paired
+           ratios, in a process of its own): roofline (over one
            dry-run cell laid out in its own process), lm_dse, sim, fleet,
            chaos, obs, with all of their own gates (the 1M-event engine race >= 10x, the LM DSE >=
            10x, tracer overhead < 3 %); fleet's replay and chaos's
@@ -117,7 +132,8 @@ A batched stats pass replays a CUDA graph: the launches the graph holds
 count at each replay, never at its capture (``kernels.graph``). The launch
 counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around ``search_gates``, each of ``kernel_costs``' two tables,
-``patterns``, each model of ``paper``, ``serve`` with ``fleet``, each job
+``patterns``, each model of ``paper``, ``serve`` with ``fleet``,
+``serve_families``, each job
 of ``bench_twins`` and its quickstart, ``train`` and ``distributed``. The
 card's name and power limit and then one line listing every kernel (the
 clip's single and batched entries apart), with its launches on each path,
@@ -768,6 +784,44 @@ def busy_us(prof) -> tuple:
     return busy, len(spans)
 
 
+def _busy_over_steps(step, n: int = 8) -> dict:
+    """The device's busy share over ``n`` calls of ``step`` (one decode
+    step each), from a torch.profiler trace over the host-clock window, or
+    "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:               # the profiler cannot trace
+        return {"device_busy_share": "not measured", "reason": str(e)}
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.stop()
+    b_us, n_k = busy_us(prof)
+    if not n_k or b_us <= 0:
+        return {"device_busy_share": "not measured",
+                "reason": "the trace holds no device time"}
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = by_name.setdefault(e.name[:60], [0.0, 0])
+            t[0] += e.time_range.elapsed_us()
+            t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_busy_share": b_us / wall_us, "busy_ms": b_us / 1e3,
+            "window_ms": wall_us / 1e3, "device_ops": n_k,
+            "device_ops_per_step": n_k / n,
+            # the costliest device operations: [us, launches] per step
+            "top_ops_per_step": {k: [v[0] / n, v[1] / n] for k, v in top}}
+
+
 def phase_profile(payload, rows) -> dict:
     """The device's busy share over one batched round of the search (8
     proposals, after one warm-up round): the union of the kernels' intervals
@@ -998,10 +1052,105 @@ def gate_ragged_rows(api32, params, dev) -> None:
              f"{alone} {with_short} {swapped} {short_alone}")
 
 
+@torch.no_grad()
+def replay_vs_eager(sess, prompts, kw, steps: int = 8) -> dict:
+    """One prefill of ``prompts`` decoded ``steps`` replayed steps through
+    the session's buffer set and, from a copy of the same cache, through
+    ``api.decode_step`` eagerly, both fed the eager step's greedy token. A
+    new set's first step captures its graph (that step runs eagerly on a
+    side stream) and is compared too. Per step the logits bit for bit (the
+    largest difference / max |logits| where they differ), every cache leaf
+    after the last step; CUDA events time each call on the stream."""
+    api = sess.api
+    logits, cache, _ = sess._prefill_groups(prompts, kw)
+    eager = {k: v.clone() for k, v in cache.items()}
+    captured = sess.graphs_captured
+    ds = sess.decode_set(cache)
+    del cache
+    first = int(ds.graph is None)
+    cur = torch.argmax(logits[:, -1], -1)[:, None]
+    equal, worst, ev = True, 0.0, []
+    for i in range(steps + first):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        want, eager = api.decode_step(sess.params, eager, cur)
+        e[1].record()
+        got = ds.step(cur)
+        e[2].record()
+        if i >= first:
+            ev.append(e)
+        if not _bits_equal(got, want):
+            equal = False
+            worst = max(worst, float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max()))
+        cur = torch.argmax(want[:, -1], -1)[:, None]
+    torch.cuda.synchronize()
+    leaves = {k: _bits_equal(ds.cache[k], eager[k]) for k in eager}
+    for k, ok in leaves.items():
+        if not ok and eager[k].is_floating_point():
+            worst = max(worst, float((ds.cache[k].float() - eager[k].float())
+                                     .abs().max()
+                                     / eager[k].float().abs().max()))
+    eager_ms = sorted(e[0].elapsed_time(e[1]) for e in ev)
+    replay_ms = sorted(e[1].elapsed_time(e[2]) for e in ev)
+    return {"replayed_steps": steps, "logits_bit_equal": equal,
+            "cache_bit_equal": all(leaves.values()),
+            "cache_leaves": sorted(leaves), "max_rel_diff": worst,
+            "captured_here": sess.graphs_captured - captured,
+            "eager_ms_per_step": eager_ms[len(eager_ms) // 2],
+            "replay_ms_per_step": replay_ms[len(replay_ms) // 2]}
+
+
+SERVE_FAMILIES = {"qwen3-0.6b": "dense GQA, qk-norm",
+                  "mixtral-8x7b": "MoE, sliding-window ring cache",
+                  "deepseek-v3-671b": "MLA + MoE",
+                  "zamba2-1.2b": "Mamba2 + shared attention",
+                  "rwkv6-1.6b": "RWKV6 recurrence",
+                  "whisper-base": "encoder-decoder"}
+
+
+def phase_serve_families(dev, card) -> dict:
+    """Every LM family at ``reduce_config`` size through its session's
+    decode program on the card: a buffer set captured from a 6-token
+    prefill, then 8 replayed steps bit-equal to ``api.decode_step`` run
+    eagerly (Mixtral's 8-slot ring wraps), every cache leaf too."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.serve_loop import ServeSession
+    kernels.reset_launch_counts()
+    out = {}
+    for arch, family in SERVE_FAMILIES.items():
+        cfg = reduce_config(get_config(arch))
+        api = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        sess = ServeSession(api, api.init(gen, device=dev), batch_slots=2,
+                            S_max=32, device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=6) for _ in range(2)]
+        kw = {"frames": rng.normal(size=(2, cfg.num_frames, cfg.d_model))
+              .astype(np.float32)} if cfg.is_encoder_decoder else {}
+        r = replay_vs_eager(sess, prompts, kw)
+        if not (r["logits_bit_equal"] and r["cache_bit_equal"]
+                and r["captured_here"] == 1 == sess.graphs_captured):
+            fail(f"serve_families: {arch}'s replayed step != the eager "
+                 f"step: {r}")
+        out[arch] = {"family": family, "dtype": cfg.dtype,
+                     "layers": cfg.num_layers, "d_model": cfg.d_model, **r,
+                     "graphs_captured": sess.graphs_captured,
+                     "capture_s": sess.capture_s,
+                     "graph_pool_bytes": sess.graph_pool_bytes}
+        del sess
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"serve_families: an SPE kernel was launched: {launches}")
+    return {"card": card, "families": out, "spe_kernel_launches": launches}
+
+
 def phase_serve(dev, card) -> dict:
     """Qwen3-0.6B at full width through ServeSession (see the module
     docstring). Every gate fails the script."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels.bench_util import lm_serve_bounds, tree_numel
@@ -1068,12 +1217,16 @@ def phase_serve(dev, card) -> dict:
                          for i in range(1, SERVE_NEW))
         del lg, cache
 
-    # the workload: 16 requests through generate, twice
+    # the workload: 16 requests through generate, twice; the first call
+    # captures the decode step of its shape, the second only replays it
     t0 = time.perf_counter()
     outs = sess.generate(reqs, max_new=SERVE_NEW)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     again = sess.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
     n_tok = sum(len(o) for o in outs)
     if n_tok != SERVE_REQUESTS * SERVE_NEW or \
             not all(0 <= t < cfg.vocab_size for o in outs for t in o):
@@ -1092,34 +1245,50 @@ def phase_serve(dev, card) -> dict:
         fail(f"serve: the open loop issued {rep.decode_steps} decode steps")
     peak = torch.cuda.max_memory_allocated()
 
-    # the device's busy share over 8 decode steps
+    # gate (a): the session's replayed step == api.decode_step run eagerly
+    # from the same prefill, bit for bit (else within the teacher-forcing
+    # gate's 1e-3 x max |logits|, and said so)
+    replay = replay_vs_eager(sess, prompts[:SERVE_SLOTS], {})
+    exact = replay["logits_bit_equal"] and replay["cache_bit_equal"]
+    if replay["captured_here"] or (not exact
+                                   and replay["max_rel_diff"] > 1e-3):
+        fail(f"serve: the replayed decode step differs from the eager step "
+             f"(limit 1e-3 x max|logits|): {replay}")
+    # the replayed step timed one by one as the eager step was, and its
+    # device operations and busy share over 8 steps
+    with torch.no_grad():
+        lg, cache, _ = sess._prefill_groups(prompts[:SERVE_SLOTS], {})
+        ds = sess.decode_set(cache)
+        del cache
+        cur = torch.argmax(lg[:, -1], -1)[:, None]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SERVE_NEW)]
+        ev[0].record()
+        for i in range(1, SERVE_NEW):
+            cur = torch.argmax(ds.step(cur)[:, -1], -1)[:, None]
+            ev[i].record()
+        torch.cuda.synchronize()
+        graph_ms = sorted(ev[i - 1].elapsed_time(ev[i])
+                          for i in range(1, SERVE_NEW))
+        lg, cache, _ = sess._prefill_groups(prompts[:SERVE_SLOTS], {})
+        ds = sess.decode_set(cache)
+        del cache
+        cur = torch.argmax(lg[:, -1], -1)[:, None]
+        graph_busy = _busy_over_steps(
+            lambda: torch.argmax(ds.step(cur)[:, -1], -1)[:, None])
+
+    # the device's busy share over 8 eager decode steps
     with torch.no_grad():
         lg, cache = api.prefill(sess.params, toks, SERVE_S_MAX)
         cur = torch.argmax(lg[:, -1], -1)[:, None]
         lg, cache = api.decode_step(sess.params, cache, cur)
-        torch.cuda.synchronize()
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        busy = {"device_busy_share": "not measured"}
-        try:
-            prof.start()
-        except RuntimeError as e:           # the profiler cannot trace
-            busy["reason"] = str(e)
-        else:
-            t0 = time.perf_counter()
-            try:
-                for _ in range(8):
-                    lg, cache = api.decode_step(sess.params, cache, cur)
-                    cur = torch.argmax(lg[:, -1], -1)[:, None]
-                torch.cuda.synchronize()
-            finally:
-                wall_us = (time.perf_counter() - t0) * 1e6
-                prof.stop()
-            b_us, n_k = busy_us(prof)
-            if n_k and b_us > 0:
-                busy = {"device_busy_share": b_us / wall_us,
-                        "busy_ms": b_us / 1e3, "window_ms": wall_us / 1e3,
-                        "device_ops": n_k, "device_ops_per_step": n_k / 8}
+        state = {"cache": cache}
+
+        def eager_step():
+            lg, state["cache"] = api.decode_step(sess.params, state["cache"],
+                                                 cur)
+            return torch.argmax(lg[:, -1], -1)[:, None]
+        busy = _busy_over_steps(eager_step)
     launches = kernels.launch_counts()
     if any(launches.values()):
         fail(f"serve: the serving path launched an SPE kernel: {launches}")
@@ -1144,13 +1313,27 @@ def phase_serve(dev, card) -> dict:
               "decode_ms_min_max": [step_ms[0], step_ms[-1]],
               "decode_step_bound_ms": bounds["decode_step_bound_ms"],
               "decode_bound_by": bounds["decode_bound_by"],
+              "decode_ms_per_step_graph": graph_ms[len(graph_ms) // 2],
+              "decode_ms_graph_p10_p90": [
+                  graph_ms[len(graph_ms) // 10],
+                  graph_ms[(9 * len(graph_ms)) // 10]],
+              "decode_ms_graph_min_max": [graph_ms[0], graph_ms[-1]],
+              "replay_vs_eager": replay,
+              "replay_bit_equal": exact,
+              "graphs_captured": sess.graphs_captured,
+              "capture_s": sess.capture_s,
+              "graph_pool_bytes": sess.graph_pool_bytes,
+              "buffer_sets": sum(sess.buffer_sets.values()),
               "generate_s": gen_s, "tokens_per_s": n_tok / gen_s,
+              "generate_replay_only_s": again_s,
+              "tokens_per_s_replay_only": n_tok / again_s,
               "tokens_per_s_bound": SERVE_SLOTS
               / (bounds["decode_step_bound_ms"] / 1e3),
               "peak_allocated_bytes": peak,
               "peak_above_weights_bytes": peak - serve_base,
               "session_bytes": serve_base - base_bytes,
-              **busy, "spe_kernel_launches": launches}
+              **busy, "graph_profile": graph_busy,
+              "spe_kernel_launches": launches}
     return sess, record
 
 
@@ -1261,6 +1444,25 @@ def _dryrun_file(path: str, single_pod: bool = True) -> dict:
     return rec
 
 
+def _obs_own_process(out_dir: str) -> dict:
+    """``benchmarks_torch.obs_bench`` in the reference's full mode (its
+    tracer-overhead gate the least of 5 paired ratios) in a process of its
+    own, so that its two timed arms run in a fresh interpreter and not
+    beside the heap and threads the earlier phases leave in this one. Its
+    asserts are its gates; returns the payload it wrote to ``out_dir``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, "-m", "benchmarks_torch.obs_bench", "--out-dir",
+         out_dir], cwd=here, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join((SRC, here))))
+    if r.returncode != 0:
+        fail(f"bench_twins: obs failed: {r.stdout[-1500:]} "
+             f"{r.stderr[-1500:]}")
+    print(r.stdout, end="", flush=True)
+    with open(os.path.join(out_dir, "obs_bench_h100.json")) as f:
+        return json.load(f)
+
+
 def _example(name: str):
     """``examples/<name>.py`` as a module (the directory is no package)."""
     import importlib.util
@@ -1274,8 +1476,9 @@ def _example(name: str):
 
 def phase_bench_twins(dev) -> dict:
     """Six benchmark twins (roofline, lm_dse, sim, fleet, chaos, obs), each
-    ``run(smoke=True, device=dev, out_dir=tmp)`` called directly (module
-    docstring), then
+    ``run(smoke=True, device=dev, out_dir=tmp)`` called directly but obs,
+    which runs in full mode in a process of its own (``_obs_own_process``;
+    module docstring), then
     ``examples/quickstart_torch.py`` on the card. Every job's own asserts
     are gates (nothing is caught); beside them: no job launches an SPE
     kernel; the roofline rows are the dry-run record; the fleet ``replay``
@@ -1286,7 +1489,7 @@ def phase_bench_twins(dev) -> dict:
     entry once for its act 4, ``block_sparse_matmul`` at least once, and its
     product is within 1e-4 of the plain version."""
     from benchmarks_torch import (chaos_bench, fleet_bench, lm_dse_bench,
-                                  obs_bench, roofline_report, sim_bench)
+                                  roofline_report, sim_bench)
     from repro_torch import kernels
     from repro_torch.configs import get_config
     cpu = torch.device("cpu")
@@ -1305,7 +1508,7 @@ def phase_bench_twins(dev) -> dict:
                 ("sim", lambda: sim_bench.run(**kw)),
                 ("fleet", lambda: fleet_bench.run(**kw)),
                 ("chaos", lambda: chaos_bench.run(**kw)),
-                ("obs", lambda: obs_bench.run(**kw))):
+                ("obs", lambda: _obs_own_process(tmp))):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             payload = job()
@@ -2137,9 +2340,13 @@ def main() -> None:
     del sess
     gc.collect()
     torch.cuda.empty_cache()
+    emit("serve_families",
+         **timed("serve_families", phase_serve_families, dev, card))
     twins = timed("bench_twins", phase_bench_twins, dev)
     emit("bench_twins", card=card,
-         serve_decode_ms_per_step=serve["decode_ms_per_step"], **twins)
+         serve_decode_ms_per_step=serve["decode_ms_per_step"],
+         serve_decode_ms_per_step_graph=serve["decode_ms_per_step_graph"],
+         **twins)
     gc.collect()
     torch.cuda.empty_cache()
     emit("deploy", **timed("deploy", phase_deploy))

@@ -1054,22 +1054,11 @@ class CNNEvaluator:
         eagerly on a side stream (cuDNN and the allocator settle; this
         pass's result is the call's), then capture it into a CUDA graph
         over the static ``inputs``, in the evaluator's memory pool."""
-        from repro_torch.kernels.graph import CountedGraph
+        from repro_torch.kernels.graph import warm_and_capture
         t0 = time.perf_counter()
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self._device_pass(*inputs)
-        main.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = CountedGraph(self._pool)
-        static_out = graph.capture(lambda: self._device_pass(*inputs))
-        torch.cuda.empty_cache()
-        self.graph_pool_bytes += \
-            torch.cuda.memory_reserved(self.device) - reserved
+        graph, out, static_out, grew = warm_and_capture(
+            lambda: self._device_pass(*inputs), self._pool, self.device)
+        self.graph_pool_bytes += grew
         self._graphs[key] = (graph, inputs, static_out)
         self.graphs_captured += 1
         self.capture_s += time.perf_counter() - t0

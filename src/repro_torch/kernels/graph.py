@@ -5,10 +5,14 @@ its kernel then: ``kernels._count`` notes the call as captured. A
 ``CountedGraph`` takes the captured calls of its capture as the launches the
 graph holds, and adds them to the launch counts at every replay, so that
 ``kernels.launch_counts`` stays exact for a path that replays graphs.
+
+``warm_and_capture`` is how an owner of graphs (the evaluator's batched
+program, the serving session's decode step) builds one: PyTorch's rule of an
+eager run on a side stream before the capture.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -38,3 +42,27 @@ class CountedGraph:
         self.graph.replay()
         for k, n in self.held.items():
             kernels._LAUNCHED[k] += n
+
+
+def warm_and_capture(fn: Callable, pool, device
+                     ) -> Tuple[CountedGraph, object, object, int]:
+    """Run ``fn()`` once eagerly on a side stream (the libraries and the
+    allocator settle; what it returns is the caller's result of this call),
+    then capture it into a ``CountedGraph`` in ``pool``. Returns (graph, the
+    eager output, the graph's static output, the bytes the pool grew by:
+    the allocator's reserved bytes over the capture, its cache emptied
+    around it). A failed capture raises: nothing falls back to eager runs."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = CountedGraph(pool)
+    static_out = graph.capture(fn)
+    torch.cuda.empty_cache()
+    return graph, out, static_out, \
+        torch.cuda.memory_reserved(device) - reserved

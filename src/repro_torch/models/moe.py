@@ -45,8 +45,15 @@ def route(x, router_w, moe: MoEConfig):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss
     me = probs.mean(dim=0)                                          # (E,)
-    ce = torch.bincount(idx.reshape(-1), minlength=moe.num_experts
-                        ).to(torch.float32) / idx.numel()
+    # tokens per expert as the JAX package counts them (zeros(E).at[idx]
+    # .add(1)): integer-valued float32 sums, exact in any order, and no
+    # read of the indices on the host (bincount sizes its output from their
+    # maximum), so a CUDA graph can capture it
+    flat = idx.reshape(-1)
+    ce = torch.zeros(moe.num_experts, dtype=torch.float32,
+                     device=idx.device).scatter_add(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=idx.device)) / idx.numel()
     aux = moe.num_experts * torch.sum(me * ce) * moe.aux_loss_coef
     return gates, idx, aux
 
@@ -65,7 +72,7 @@ def dispatch_combine(x, gates, idx, moe: MoEConfig, expert_fn,
     dev = x.device
 
     slot_expert = idx.reshape(T * k)                    # (T*k,)
-    slot_token = torch.arange(T, device=dev).repeat_interleave(k)
+    slot_token = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(-1)
     slot_gate = gates.reshape(T * k)
 
     order = torch.argsort(slot_expert, stable=True)    # group by expert

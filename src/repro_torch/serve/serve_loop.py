@@ -15,13 +15,22 @@ caller passes ``device="cpu"``, two ways:
     prefill and ``step_cycles`` per decode step per live group. The
     returned ``ServeReport`` carries per-request queueing/latency arrays
     comparable to ``SimReport``'s.
+
+Every decode step runs one program per cache shape, as the JAX package's
+``jax.jit`` of the step compiles one per shape: a ``DecodeSet`` holds the
+static buffers of a shape (the token, every cache leaf) and the step that
+reads and writes them (``decode_into``). On the card the step is captured
+once per buffer set into a CUDA graph and replayed per token; on the CPU
+the same static-buffer step runs eagerly. Prefill stays eager, as the
+reference's does.
 """
 from __future__ import annotations
 
 import inspect
+import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +145,64 @@ class ServeReport:
         return self.latency_percentile(99.0)
 
 
+def decode_into(api: ModelAPI, params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor) -> torch.Tensor:
+    """The static-buffer decode step: ``api.decode_step`` on ``cache`` and
+    ``token``, each new cache leaf it returns copied back into ``cache``'s
+    own tensor (the leaves a family writes in place are already there).
+    Returns the logits (g, 1, V). It reads nothing on the host, so a CUDA
+    graph captures it whole."""
+    logits, new = api.decode_step(params, cache, token)
+    for k, v in new.items():
+        if v is not cache[k]:
+            cache[k].copy_(v)
+    return logits
+
+
+def shape_key(cache: Dict[str, torch.Tensor]) -> Tuple:
+    """A decode program's shape: the group size and every cache leaf's
+    shape and dtype (what ``jax.jit`` recompiles the step for)."""
+    return (int(cache["pos"].shape[0]),) + tuple(
+        (k, tuple(v.shape), v.dtype) for k, v in sorted(cache.items()))
+
+
+class DecodeSet:
+    """One static buffer set of a cache shape: the token (g, 1), a copy of
+    every cache leaf, and the decode program over them. On the card its
+    first ``step`` runs eagerly on a side stream and captures the step into
+    a CUDA graph (in the session's memory pool); every later step replays
+    it. On the CPU every step runs ``decode_into`` eagerly."""
+
+    def __init__(self, sess: "ServeSession", cache):
+        self.sess = sess
+        self.token = torch.zeros((cache["pos"].shape[0], 1),
+                                 dtype=torch.int64, device=sess.device)
+        self.cache = {k: v.clone() for k, v in cache.items()}
+        self.graph = None
+        self.logits = None               # the graph's static output
+
+    def load(self, cache) -> None:
+        """Copy a prefill's cache into this set, leaf by leaf."""
+        for k, v in cache.items():
+            self.cache[k].copy_(v)
+
+    def _run(self) -> torch.Tensor:
+        return decode_into(self.sess.api, self.sess.params, self.cache,
+                           self.token)
+
+    @torch.no_grad()
+    def step(self, token: torch.Tensor) -> torch.Tensor:
+        """Advance the set's cache by ``token`` (g, 1); returns the logits
+        (g, 1, V), valid until the set's next step."""
+        self.token.copy_(token)
+        if self.graph is not None:
+            self.graph.replay()
+            return self.logits
+        if self.sess.device.type != "cuda":
+            return self._run()
+        return self.sess._capture(self)
+
+
 class ServeSession:
     """Fixed-slot continuous batching (tiny vLLM-style front end).
 
@@ -144,7 +211,13 @@ class ServeSession:
     (``models.serving_params``; bit-identical outputs). Sampling at
     ``temperature > 0`` draws from the session's own ``torch.Generator``
     seeded by ``seed``; greedy decoding (``temperature <= 0``) takes the
-    first maximal logit."""
+    first maximal logit.
+
+    Decode steps run through ``DecodeSet``s, one per cache shape and group
+    in flight, kept for the session's life and reused: a set is built only
+    when every set of its shape is held by a live group. On the card
+    ``graphs_captured``, ``capture_s`` and ``graph_pool_bytes`` say what
+    the captures cost."""
 
     def __init__(self, api: ModelAPI, params, *, batch_slots: int,
                  S_max: int, temperature: float = 0.0, seed: int = 0,
@@ -156,12 +229,49 @@ class ServeSession:
         self.temperature = temperature
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-        self._decode = api.decode_step
+        #: shape key -> every buffer set built for that shape
+        self._sets: Dict[Tuple, List[DecodeSet]] = {}
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self.graphs_captured: int = 0
+        self.capture_s: float = 0.0
+        #: device memory the graphs' pool holds (``warm_and_capture``)
+        self.graph_pool_bytes: int = 0
         try:
             sig = inspect.signature(api.prefill)
             self._ragged_ok = "prompt_lens" in sig.parameters
         except (TypeError, ValueError):          # builtins / C callables
             self._ragged_ok = False
+
+    @property
+    def buffer_sets(self) -> Dict[Tuple, int]:
+        """Buffer sets built so far, per shape key."""
+        return {k: len(v) for k, v in self._sets.items()}
+
+    def decode_set(self, cache, held: Sequence[DecodeSet] = ()) -> DecodeSet:
+        """A buffer set of ``cache``'s shape that is not in ``held`` (the
+        sets of the groups still decoding), loaded with ``cache``; a new set
+        only when every set of that shape is held."""
+        sets = self._sets.setdefault(shape_key(cache), [])
+        for ds in sets:
+            if ds not in held:
+                ds.load(cache)
+                return ds
+        ds = DecodeSet(self, cache)
+        sets.append(ds)
+        return ds
+
+    def _capture(self, ds: DecodeSet) -> torch.Tensor:
+        """A set's first step on the card: run eagerly on a side stream (its
+        logits are this step's), then captured into the set's graph."""
+        from repro_torch.kernels.graph import warm_and_capture
+        t0 = time.perf_counter()
+        ds.graph, logits, ds.logits, grew = warm_and_capture(
+            ds._run, self._pool, self.device)
+        self.graph_pool_bytes += grew
+        self.graphs_captured += 1
+        self.capture_s += time.perf_counter() - t0
+        return logits
 
     def generate(self, prompts: Sequence, max_new: int = 16,
                  frames: Optional[np.ndarray] = None) -> List[List[int]]:
@@ -235,10 +345,11 @@ class ServeSession:
     def _decode_tokens(self, logits, cache, max_new: int) -> List[List[int]]:
         cur = self._sample(logits)
         gen = [cur]
-        for _ in range(max_new - 1):
-            logits, cache = self._decode(self.params, cache, cur)
-            cur = self._sample(logits)
-            gen.append(cur)
+        if max_new > 1:
+            ds = self.decode_set(cache)
+            for _ in range(max_new - 1):
+                cur = self._sample(ds.step(cur))
+                gen.append(cur)
         seq = torch.cat(gen, dim=1).cpu().numpy()
         return [list(map(int, row)) for row in seq]
 
@@ -327,6 +438,7 @@ class ServeSession:
         si = 0
         eff_step = step_cycles
         switches = 0
+        captured = self.graphs_captured
 
         while waiting or groups:
             if not groups and waiting:
@@ -372,7 +484,10 @@ class ServeSession:
                             done[i] = True
                             free += 1
                     if any(quota[i] > 0 for i in idx):
-                        groups.append({"cache": cache, "cur": cur,
+                        # the group's own buffer set until it retires
+                        ds = self.decode_set(cache,
+                                             [g["set"] for g in groups])
+                        groups.append({"set": ds, "cur": cur,
                                        "rows": list(idx), "taken": 1})
             # one decode round: each live group advances to its next bucket
             # boundary (quantum - 1 steps right after a prefill — the
@@ -386,15 +501,14 @@ class ServeSession:
                 cap = int(max(quota[i] for i in g["rows"])) - g["taken"]
                 steps = quantum - (g["taken"] % quantum or quantum)
                 steps = min(steps or quantum, cap)
-                cur, cache = g["cur"], g["cache"]
+                cur = g["cur"]
                 for _ in range(steps):
-                    logits, cache = self._decode(self.params, cache, cur)
-                    cur = self._sample(logits)
+                    cur = self._sample(g["set"].step(cur))
                     toks = cur.cpu().numpy()
                     for row, i in enumerate(g["rows"]):
                         if quota[i] > 0 and len(outputs[i]) < quota[i]:
                             outputs[i].append(int(toks[row, 0]))
-                g["cur"], g["cache"] = cur, cache
+                g["cur"] = cur
                 g["taken"] += steps
                 decode_steps += steps
                 t += steps * eff_step
@@ -421,6 +535,7 @@ class ServeSession:
             tr.count("serve.runs")
             tr.count("serve.requests", n)
             tr.count("serve.decode_steps", decode_steps)
+            tr.count("serve.graphs", self.graphs_captured - captured)
             tr.count("serve.prefills", prefills)
             tr.count("serve.rung_switches", switches)
             tr.count("serve.shed", int(shed_mask.sum()))
