@@ -22,7 +22,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
            path's (a ResNet-18 layer-3 im2col product): each probe's time,
            mode and check against its plain version, the decode factors and
            the block_sparse_matmul launches
-  search   SGD warm-up, CNNEvaluator, hass_search hardware-aware and
+  search   SGD warm-up (one step captured as a CUDA graph and replayed;
+           warmup_s), CNNEvaluator, hass_search hardware-aware and
            software-only (16 trials each, 8 per round: one batched program,
            captured once as a CUDA graph and replayed), a short serial run
            and its batch_size=1 replay (gate e); gates: launches of the
@@ -59,7 +60,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
            proposal scores acc 1.0, metrics in range; per model the
            products' summed kernel / library / bound times and one serial
            stats pass's clip inputs through the batched entry, checked
-           against its plain version and timed
+           against its plain version and timed; before each model its
+           captured SGD warm-up == the same warm-up run eagerly and
+           captured again, bit for bit (warmup_s, eager_warmup_s,
+           captured_warmup_again_s)
   serve    Qwen3-0.6B at full width through ServeSession: 16 requests of 128
            prompt tokens, 8 slots, bf16; the session decodes through one
            CUDA graph per cache shape, captured once and replayed per
@@ -95,11 +99,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
   deploy   host only: search -> partition -> simulate -> SLO pick on
            Qwen3-0.6B over 4 modeled chips (repro_torch.deploy_run)
   train    Qwen3-0.6B at full width trained 8 AdamW steps through
-           make_train_step fed by DataPipeline (bf16 compute, float32
-           masters, accum 2, remat "full"): step times, tokens/s, peak
-           memory, busy share, the step's bound; gates: the loss falls, card
-           == CPU (float32, depth 2), accum 2 == 1 and remat none == full ==
-           dots, no SPE kernel launched
+           TrainProgram(make_train_step) fed by DataPipeline (bf16 compute,
+           float32 masters, accum 2, remat "full"; the first step captures
+           the step as a CUDA graph, the rest replay it), then 8 eager and 8
+           replayed steps in turns: replayed and eager step times,
+           tokens/s, captures, capture seconds, graph-pool bytes, peak
+           memory, busy share and device operations of a replayed and of an
+           eager step, the step's bound; gates: the loss falls, one capture
+           and one buffer set, card == CPU (float32, depth 2), accum 2 == 1
+           and remat none == full == dots (eager), no SPE kernel launched;
+           the replay == eager gate runs in ``deterministic``
+  train_families  every LM family at reduce_config size (the
+           serve_families six), the train recipe on batches of 4 x 32: 1
+           capturing and 8 replayed steps of a TrainProgram against 9 plain
+           steps from a copy of the state, every loss and the final state
+           bit for bit, one capture each; replayed and eager ms per step (run
+           in the deterministic subprocess, printed as its own line)
   distributed  an NCCL process group of one rank (a FileStore in a temp
            directory) and a (1, 1) ("data", "model") DeviceMesh: gates
            compressed_psum == ef_quantize and a one-stage 8-microbatch
@@ -111,10 +126,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
            bytes per rank; no SPE kernel launched
   deterministic  a process of its own, with CUBLAS_WORKSPACE_CONFIG=:4096:8
            and torch.use_deterministic_algorithms: the restart gate (int8
-           state, a crash and a restore give the same losses and state bit
-           for bit) and sharded == unsharded training (2 steps of the train
-           phase's full-depth step from one initial state: losses and the
-           final state bit for bit); no other phase runs under that setting
+           state, each run through its own TrainProgram; a crash and a
+           restore copied into the captured state give the same losses and
+           state bit for bit), sharded == unsharded training (2 eager steps
+           of the train phase's full-depth step from one initial state:
+           losses and the final state bit for bit), the train phase's step
+           replayed == eager (1 capturing and 8 replayed steps from one
+           state at full width: every loss, parameter, moment and the step
+           bit for bit) and
+           train_families; no other phase runs under that setting
 
 Times: ``ms`` is the device time of the call the main path makes
 (``ops.act_clip`` / ``ops.act_clip_batched`` / ``SparseWeight.matmul`` on the
@@ -134,7 +154,8 @@ counters are set to 0 just before ``search`` and read just after
 ``execute``, and again around ``search_gates``, each of ``kernel_costs``' two tables,
 ``patterns``, each model of ``paper``, ``serve`` with ``fleet``,
 ``serve_families``, each job
-of ``bench_twins`` and its quickstart, ``train`` and ``distributed``. The
+of ``bench_twins`` and its quickstart, ``train``, ``train_families`` and
+``distributed``. The
 card's name and power limit and then one line listing every kernel (the
 clip's single and batched entries apart), with its launches on each path,
 come before the last line, which is the device record. The single entry's
@@ -575,7 +596,8 @@ def phase_search(dev):
     emit("search", model="resnet18", img_res=RESNET18_IMG_RES,
          calib_images=CALIB_BATCH, prunable_layers=L, iters=16, batch_size=8,
          dse_backend=payload["dse_backend"],
-         setup_s=payload["setup_s"], search_s=payload["search_s"],
+         setup_s=payload["setup_s"], warmup_s=payload["warmup_s"],
+         search_s=payload["search_s"],
          trials_per_s=payload["trials_per_s"],
          serial_trials_per_s=4 / serial_s,
          stats_forwards=ev.stats_forwards, stats_passes=ev.stats_passes,
@@ -905,7 +927,13 @@ def phase_paper(dev) -> dict:
     block_sparse_matmul launches == products, the dense proposal scores
     acc 1.0, every trial's metrics in range. Then each product is timed as
     ``phase_timing`` does (kernel, library, bound; summed per model) and one
-    stats forward's clip inputs are checked and timed."""
+    stats forward's clip inputs are checked and timed. Before each model,
+    its SGD warm-up (``trained_cnn``: one captured step, replayed), the
+    same warm-up eagerly and captured once more must give the same weights
+    bit for bit; ``warmup_s`` times the first (the main path's, which
+    ``model_s`` counts), ``eager_warmup_s`` and
+    ``captured_warmup_again_s`` the other two, after the first has picked
+    the convolutions' algorithms."""
     from benchmarks_torch.common import calib_images, trained_cnn
     from benchmarks_torch.table2_models import BUDGETS, row
     from repro_torch import kernels
@@ -913,11 +941,27 @@ def phase_paper(dev) -> dict:
     from repro_torch.search_run import execute_winner
     gen = torch.Generator(device="cpu")
     gen.manual_seed(17)
-    models, launches, max_err = [], dict.fromkeys(
-        kernels.launch_counts(), 0), 0.0
+    models, launches, max_err, warm = [], dict.fromkeys(
+        kernels.launch_counts(), 0), 0.0, {}
     for cfg in PAPER_CNNS:
+        # the warm-up as the main path runs it (captured once, replayed;
+        # the first convolutions of each shape pick their algorithms here),
+        # then eagerly and captured again from the same seed: the weights
+        # must be the same bits
+        warmup_s = _timed_step(lambda: warm.update(
+            p=trained_cnn(cfg, steps=20, device=dev))) / 1e3
+        params = warm.pop("p")
+        again = {}
+        for tag, graph in (("eager", False), ("captured", True)):
+            again[tag] = _timed_step(lambda: warm.update(
+                p=trained_cnn(cfg, steps=20, device=dev,
+                              graph=graph))) / 1e3
+            for n, d in warm.pop("p").items():
+                for k, v in d.items():
+                    if not _bits_equal(params[n][k], v):
+                        fail(f"paper: {cfg.name}'s {tag} warm-up != the "
+                             f"captured warm-up at {n}/{k}")
         t0 = time.perf_counter()
-        params = trained_cnn(cfg, steps=20, device=dev)
         images = calib_images(cfg.img_res, 0, n=CALIB_BATCH, device=dev)
         kernels.reset_launch_counts()
         r, ev, res = row(cfg, params, images, BUDGETS[cfg.name], PAPER_ITERS,
@@ -928,7 +972,7 @@ def phase_paper(dev) -> dict:
                                keep_operands=True)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        model_s = time.perf_counter() - t0
+        model_s = warmup_s + time.perf_counter() - t0
         if dense["acc"] != 1.0:
             fail(f"paper: {cfg.name}'s unpruned proposal scored acc "
                  f"{dense['acc']}, not 1.0")
@@ -982,7 +1026,9 @@ def phase_paper(dev) -> dict:
             "dense_steps": sum(p["dense_steps"] for p in prods),
             "max_abs_err": err, "matmul": matmul,
             "largest_loss_to_library": worst, "clip_per_forward": clip,
-            "model_s": model_s})
+            "warmup_s": warmup_s, "eager_warmup_s": again["eager"],
+            "captured_warmup_again_s": again["captured"],
+            "warmup_bitwise_equal": True, "model_s": model_s})
         del params, images, ev, res, prods
         gc.collect()
         torch.cuda.empty_cache()
@@ -1838,7 +1884,8 @@ def gate_restart(cfg, dev) -> dict:
     copy of its parameters) must restore bit for bit. Runs under
     ``torch.use_deterministic_algorithms(True)`` (the embedding backward and
     softmax_xent's gather accumulate with atomics otherwise), restored after
-    it."""
+    it. Each run steps through a ``TrainProgram`` of its own (one capture):
+    the crash's restore is copied into the captured state."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.models import build_model
@@ -1847,7 +1894,8 @@ def gate_restart(cfg, dev) -> dict:
                                               save_checkpoint)
     from repro_torch.train.fault_tolerance import run_resilient
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.train_loop import (TrainConfig, init_train_state,
+    from repro_torch.train.train_loop import (TrainConfig, TrainProgram,
+                                              init_train_state,
                                               make_train_step)
     api = build_model(cfg)
     tcfg = TrainConfig(opt=OptConfig(lr=6e-4, warmup_steps=2, total_steps=16,
@@ -1866,7 +1914,7 @@ def gate_restart(cfg, dev) -> dict:
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(4)
                 state = init_train_state(api.init, tcfg, gen, device=dev)
-                step_fn = make_train_step(api.loss, tcfg)
+                step_fn = TrainProgram(make_train_step(api.loss, tcfg), dev)
                 last = {}
 
                 def step(s, b, step_fn=step_fn, last=last):
@@ -1877,6 +1925,9 @@ def gate_restart(cfg, dev) -> dict:
                                         async_save=True)
                 rep = run_resilient(step, state, pipe.batch_at, steps=6,
                                     ckpt=mgr, ckpt_every=2, fail_at=fail_at)
+                if step_fn.graphs_captured != 1 or last["state"] is not state:
+                    fail(f"train: the {tag} run made "
+                         f"{step_fn.graphs_captured} captures")
                 runs.append((rep, last["state"]))
             (r1, s1), (r2, s2) = runs
             if r2.restarts != 1 or r2.history[:5] != r1.history[:5] or \
@@ -1904,12 +1955,31 @@ def gate_restart(cfg, dev) -> dict:
                                         _leaf_pairs(back, back)})}
 
 
+def _timed_step(fn) -> float:
+    """Host ms of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _median_min_max(ms) -> tuple:
+    ms = sorted(ms)
+    return ms[len(ms) // 2], [ms[0], ms[-1]]
+
+
 def phase_train(dev, card) -> dict:
     """Qwen3-0.6B at full width (28 layers, d 1024, vocab 151,936, tied),
     random weights from seed 0, bf16 compute with float32 masters, trained
     8 AdamW steps of 8 x 256 tokens (accum 2, remat "full", float32 state)
-    through ``make_train_step`` fed by ``DataPipeline(prefetch=2)``; then
-    the gates (module docstring). Every gate fails the script."""
+    through ``TrainProgram(make_train_step(...))`` fed by
+    ``DataPipeline(prefetch=2)``: the first step runs eagerly and captures
+    the step, the others replay it. Then 8 eager and 8 replayed steps in
+    turns on the same state, timed; the busy share and costliest device
+    operations of 2 replayed steps, the busy share and host operations of
+    an eager one; and the gates (module docstring). Every gate fails the
+    script."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -1917,7 +1987,7 @@ def phase_train(dev, card) -> dict:
     from repro_torch.kernels.bench_util import lm_train_bounds
     from repro_torch.models import build_model
     from repro_torch.train.optimizer import adamw_update
-    from repro_torch.train.train_loop import (compute_grads,
+    from repro_torch.train.train_loop import (TrainProgram, compute_grads,
                                               init_train_state,
                                               make_train_step)
 
@@ -1938,28 +2008,40 @@ def phase_train(dev, card) -> dict:
     bounds = lm_train_bounds(cfg, state["params"], batch=TRAIN_BATCH,
                              seq_len=TRAIN_SEQ)
     step_fn = make_train_step(api.loss, tcfg)
+    prog = TrainProgram(step_fn, dev)
     pipe = DataPipeline(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
                                          "train"), seed=0, device=dev,
                         prefetch=2)
-    losses, step_ms = [], []
+    losses, step_ms, out = [], [], {}
+
+    def program_step():
+        out["state"], out["m"] = prog(state, next(pipe))
+
     for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, next(pipe))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
+        step_ms.append(_timed_step(program_step))
+        if out["state"] is not state:
+            fail("train: the program returned another state than the one "
+                 "it captured")
+        losses.append(float(out["m"]["loss"]))
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: "
              f"{losses}")
+    if prog.graphs_captured != 1 or len(prog.buffer_sets) != 1:
+        fail(f"train: {prog.graphs_captured} captures, "
+             f"{len(prog.buffer_sets)} buffer sets (1 each expected)")
 
-    # the device's busy share over one more step (the step updates the
-    # state's tensors in place)
+    # eager and replayed steps in turns on the same state (each updates it
+    # in place), then the busy share over one of each
+    eager_ms, replay_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        eager_ms.append(_timed_step(lambda: step_fn(state, next(pipe))))
+        replay_ms.append(_timed_step(program_step))
     batch = next(pipe)
-    busy = _profile_step(lambda: step_fn(state, batch))
-    # one more step in its two halves, host clock with a synchronise after
-    # each: the gradients of both microbatches, then the AdamW update
+    busy = _busy_over_steps(lambda: prog(state, batch), n=2)
+    busy_eager = _profile_step(lambda: step_fn(state, batch))
+    # one more eager step in its two halves, host clock with a synchronise
+    # after each: the gradients of both microbatches, then the AdamW update
     batch = next(pipe)
     split = {}
     t0 = time.perf_counter()
@@ -1971,7 +2053,11 @@ def phase_train(dev, card) -> dict:
     torch.cuda.synchronize()
     split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
     pipe.close()
-    del state, m, batch, grads
+    graph = {"graphs_captured": prog.graphs_captured,
+             "capture_s": prog.capture_s,
+             "graph_pool_bytes": prog.graph_pool_bytes,
+             "capture_step_ms": step_ms[0]}
+    del state, out, batch, grads, prog
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1986,7 +2072,8 @@ def phase_train(dev, card) -> dict:
     if any(launches.values()):
         fail(f"train: the training path launched an SPE kernel: {launches}")
 
-    ms = sorted(step_ms)
+    med, mm = _median_min_max(replay_ms)
+    emed, emm = _median_min_max(eager_ms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     return {"card": card, "model": cfg.name, "dtype": cfg.dtype,
             "masters": "float32", "params": bounds["params"],
@@ -1995,9 +2082,12 @@ def phase_train(dev, card) -> dict:
             "accum": tcfg.accum, "remat": tcfg.remat,
             "state_dtype": tcfg.opt.state_dtype, "init_s": init_s,
             "losses": losses, "loss_falls": True,
-            "step_ms": ms[len(ms) // 2], "step_ms_min_max": [ms[0], ms[-1]],
-            "step_ms_all": step_ms,
-            "tokens_per_s": tokens / (ms[len(ms) // 2] / 1e3),
+            "program_step_ms_all": step_ms,
+            "step_ms": med, "step_ms_min_max": mm, "step_ms_all": replay_ms,
+            "eager_step_ms": emed, "eager_step_ms_min_max": emm,
+            "eager_step_ms_all": eager_ms,
+            "tokens_per_s": tokens / (med / 1e3),
+            "eager_tokens_per_s": tokens / (emed / 1e3),
             "step_bound_ms": bounds["step_bound_ms"],
             "step_bound_model_ms": bounds["model_ms"],
             "step_bound_optimizer_ms": bounds["optimizer_ms"],
@@ -2005,8 +2095,107 @@ def phase_train(dev, card) -> dict:
             "tokens_per_s_bound": tokens / (bounds["step_bound_ms"] / 1e3),
             "peak_allocated_bytes": peak,
             "peak_above_start_bytes": peak - base_bytes,
-            "train_state_bytes": state_bytes, **busy, "step_split": split,
+            "train_state_bytes": state_bytes, **graph, **busy,
+            "eager": busy_eager, "step_split": split,
             "gate_card_vs_cpu": card_cpu, "gate_accum_remat": accum_remat,
+            "spe_kernel_launches": launches}
+
+
+def _train_replay_vs_eager(cfg, dev, batch_at, where: str) -> dict:
+    """``cfg``'s step with the train phase's recipe from one initial state:
+    1 capturing and TRAIN_STEPS replayed steps of a ``TrainProgram``, in
+    turns with as many plain steps from a copy of the state, fed
+    ``batch_at(i)``. Every loss and, after the last step, every
+    parameter, both moments and ``step`` must be equal bit for bit, with
+    one capture. Host ms per step between two synchronisations."""
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import (TrainProgram, init_train_state,
+                                              make_train_step)
+    api = build_model(cfg)
+    tcfg = train_tcfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(api.init, tcfg, gen, device=dev)
+    eager = _to(state, dev)
+    step_fn = make_train_step(api.loss, tcfg)
+    prog = TrainProgram(step_fn, dev)
+    res, losses, eager_ms, replay_ms = {}, [], [], []
+    for i in range(1 + TRAIN_STEPS):
+        b = batch_at(i)
+        e = _timed_step(lambda: res.update(e=step_fn(eager, b)[1]))
+        r = _timed_step(lambda: res.update(r=prog(state, b)))
+        got, m = res["r"]
+        if got is not state or not _bits_equal(m["loss"], res["e"]["loss"]):
+            fail(f"{where}: {cfg.name}: step {i}'s loss {float(m['loss'])} "
+                 f"!= eager {float(res['e']['loss'])}")
+        losses.append(float(m["loss"]))
+        if i:
+            eager_ms.append(e)
+            replay_ms.append(r)
+    n = 0
+    for path, x, y in _leaf_pairs(state, eager):
+        if not _bits_equal(x, y):
+            fail(f"{where}: {cfg.name}: the replayed state differs at {path}")
+        n += 1
+    if prog.graphs_captured != 1:
+        fail(f"{where}: {cfg.name}: {prog.graphs_captured} captures")
+    med, mm = _median_min_max(replay_ms)
+    emed, emm = _median_min_max(eager_ms)
+    return {"replayed_steps": TRAIN_STEPS, "losses": losses,
+            "losses_bitwise_equal": True, "state_leaves_bitwise_equal": n,
+            "replay_ms_per_step": med, "replay_ms_min_max": mm,
+            "eager_ms_per_step": emed, "eager_ms_min_max": emm,
+            "graphs_captured": prog.graphs_captured,
+            "capture_s": prog.capture_s,
+            "graph_pool_bytes": prog.graph_pool_bytes}
+
+
+def gate_train_replay(cfg, dev) -> dict:
+    """The train phase's step at full width (8 x 256 tokens) through
+    ``_train_replay_vs_eager``. Needs deterministic algorithms (the
+    embedding backward and the gather of ``softmax_xent`` accumulate with
+    atomics otherwise)."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import lm_batch
+    kernels.reset_launch_counts()
+    out = _train_replay_vs_eager(
+        cfg, dev, lambda i: lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                     step=i, device=dev), "deterministic")
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"deterministic: an SPE kernel was launched: {launches}")
+    return {"model": cfg.name, **out}
+
+
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 4, 32
+
+
+def phase_train_families(dev) -> dict:
+    """Every LM family at ``reduce_config`` size (the serve_families six)
+    through ``_train_replay_vs_eager`` on batches of 4 x 32. Runs with
+    deterministic algorithms (in ``deterministic_main``)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.synthetic import lm_batch
+    kernels.reset_launch_counts()
+    out = {}
+    for arch, family in SERVE_FAMILIES.items():
+        cfg = reduce_config(get_config(arch))
+        out[arch] = {"family": family, "dtype": cfg.dtype,
+                     "layers": cfg.num_layers, "d_model": cfg.d_model,
+                     **_train_replay_vs_eager(
+                         cfg, dev, lambda i: lm_batch(
+                             cfg, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ,
+                             seed=0, step=i, device=dev), "train_families")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"train_families: an SPE kernel was launched: {launches}")
+    return {"families": out, "batch": TRAIN_FAMILY_BATCH,
+            "seq_len": TRAIN_FAMILY_SEQ, "accum": 2, "remat": "full",
+            "mode": "deterministic algorithms, "
+                    "CUBLAS_WORKSPACE_CONFIG=:4096:8",
             "spe_kernel_launches": launches}
 
 
@@ -2161,10 +2350,14 @@ def phase_distributed(dev, card, train) -> dict:
             "step_ms": med, "step_ms_min_max": [ms[0], ms[-1]],
             "step_ms_all": step_ms[1:], "tokens_per_s": tokens / (med / 1e3),
             "peak_allocated_bytes": peak, **busy,
-            "unsharded": {k: train.get(k) for k in (
-                "step_ms", "step_ms_min_max", "tokens_per_s",
-                "device_ops_per_step", "busy_ms", "peak_allocated_bytes")},
-            "dtensor_host_ms_per_step": med - train["step_ms"],
+            "unsharded_eager": {
+                **{k: train[k] for k in ("eager_step_ms",
+                                         "eager_step_ms_min_max",
+                                         "eager_tokens_per_s",
+                                         "peak_allocated_bytes")},
+                **{k: train["eager"].get(k) for k in (
+                    "device_ops_per_step", "busy_ms")}},
+            "dtensor_host_ms_per_step": med - train["eager_step_ms"],
             "dryrun": dry, "spe_kernel_launches": launches}
 
 
@@ -2230,7 +2423,9 @@ def deterministic_main() -> None:
     """The gates that need deterministic algorithms, run by ``main`` in a
     process of its own with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS
     held to a fixed workspace from its first handle on), so that no other
-    phase runs under it. Prints one ``DETERMINISTIC {...}`` line."""
+    phase runs under it: the restart gate, sharded == unsharded, the train
+    phase's replay == eager at full width, and ``train_families``. Prints
+    one ``DETERMINISTIC {...}`` line."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
@@ -2238,17 +2433,19 @@ def deterministic_main() -> None:
     torch.use_deterministic_algorithms(True)
     dev = resolve_device("cuda")
     cfg = get_config(TRAIN_ARCH)
-    t0 = time.perf_counter()
-    restart = gate_restart(dataclasses.replace(cfg, num_layers=GATE_LAYERS),
-                           dev)
-    restart["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sharded = gate_sharded_equality(cfg, dev)
-    sharded["seconds"] = time.perf_counter() - t0
-    print("DETERMINISTIC " + json.dumps({
-        "cublas_workspace_config": os.environ["CUBLAS_WORKSPACE_CONFIG"],
-        "gate_restart": restart, "gate_sharded_equality": sharded}),
-        flush=True)
+    out = {"cublas_workspace_config": os.environ["CUBLAS_WORKSPACE_CONFIG"]}
+    for name, fn, arg in (
+            ("gate_restart", gate_restart,
+             dataclasses.replace(cfg, num_layers=GATE_LAYERS)),
+            ("gate_sharded_equality", gate_sharded_equality, cfg),
+            ("gate_train_replay", gate_train_replay, cfg),
+            ("train_families", phase_train_families, None)):
+        t0 = time.perf_counter()
+        out[name] = fn(arg, dev) if arg is not None else fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("DETERMINISTIC " + json.dumps(out), flush=True)
 
 
 def phase_deterministic() -> dict:
@@ -2354,8 +2551,10 @@ def main() -> None:
     emit("train", **train)
     dist_ = timed("distributed", phase_distributed, dev, card, train)
     emit("distributed", **dist_)
-    emit("deterministic", card=card,
-         **timed("deterministic", phase_deterministic))
+    det = timed("deterministic", phase_deterministic)
+    families = det.pop("train_families")
+    emit("train_families", card=card, **families)
+    emit("deterministic", card=card, **det)
 
     q_launches = twins["quickstart"]["launches"]
     path_launches = {
@@ -2366,6 +2565,8 @@ def main() -> None:
             "quickstart": q_launches["act_clip_count"],
             "bench_twins": twins["spe_kernel_launches"],
             "train": train["spe_kernel_launches"]["act_clip_count"],
+            "train_families": families["spe_kernel_launches"][
+                "act_clip_count"],
             "distributed": dist_["spe_kernel_launches"]["act_clip_count"]},
         "act_clip_count_batched": {
             "search+execute": counts["act_clip_count_batched"],
@@ -2381,6 +2582,8 @@ def main() -> None:
                 "block_sparse_matmul"],
             "bench_twins": twins["spe_kernel_launches"],
             "train": train["spe_kernel_launches"]["block_sparse_matmul"],
+            "train_families": families["spe_kernel_launches"][
+                "block_sparse_matmul"],
             "distributed": dist_["spe_kernel_launches"][
                 "block_sparse_matmul"]}}
     record = {"kernels": [

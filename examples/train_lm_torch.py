@@ -27,8 +27,8 @@ from repro_torch.models import build_model
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import StepWatchdog, run_resilient
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_loop import (TrainConfig, init_train_state,
-                                          make_train_step)
+from repro_torch.train.train_loop import (TrainConfig, TrainProgram,
+                                          init_train_state, make_train_step)
 
 LM100M = ModelConfig(
     name="lm-100m", family="dense", num_layers=12, d_model=768, num_heads=12,
@@ -66,7 +66,9 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = init_train_state(api.init, tcfg, gen, device=dev)
-    step_fn = make_train_step(api.loss, tcfg)
+    # the reference jits the step: one program per shape, captured once as
+    # a CUDA graph on the card and replayed every step
+    step_fn = TrainProgram(make_train_step(api.loss, tcfg), dev)
     mgr = CheckpointManager(args.ckpt_dir, keep=2, async_save=True)
     if args.resume:
         restored = mgr.restore_or_none(device=dev)
@@ -85,7 +87,8 @@ def main(argv=None):
     toks = args.steps * args.batch * args.accum * args.seq
     print(f"loss {rep.history[0]:.3f} -> {rep.final_loss:.3f} over "
           f"{rep.steps_run} steps | {toks / dt:.0f} tok/s | "
-          f"{dt:.0f}s total | restarts={rep.restarts}")
+          f"{dt:.0f}s total | restarts={rep.restarts} | "
+          f"graphs={step_fn.graphs_captured} ({step_fn.capture_s:.2f}s)")
     assert rep.final_loss < rep.history[0], "training must reduce loss"
     pipe.close()
     return rep

@@ -6,9 +6,10 @@ its kernel then: ``kernels._count`` notes the call as captured. A
 graph holds, and adds them to the launch counts at every replay, so that
 ``kernels.launch_counts`` stays exact for a path that replays graphs.
 
-``warm_and_capture`` is how an owner of graphs (the evaluator's batched
-program, the serving session's decode step) builds one: PyTorch's rule of an
-eager run on a side stream before the capture.
+``warm_and_capture`` is how an owner of graphs builds one: PyTorch's rule of
+an eager run on a side stream before the capture. The owners: the evaluator's
+batched program, the serving session's decode step, the train step's
+``TrainProgram`` and the CNN warm-up's SGD step.
 """
 from __future__ import annotations
 
@@ -31,9 +32,13 @@ class CountedGraph:
 
     def capture(self, fn: Callable):
         """Capture ``fn()`` and return what it returned (tensors of the
-        graph's pool, rewritten by every replay). Nothing runs yet."""
+        graph's pool, rewritten by every replay). Nothing runs yet. The
+        capture is thread-local: another thread of the process may make
+        CUDA calls meanwhile (a data pipeline's prefetch thread pins host
+        memory while a train step is captured)."""
         before = dict(kernels._CAPTURED)
-        with torch.cuda.graph(self.graph, pool=self.pool):
+        with torch.cuda.graph(self.graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
             out = fn()
         self.held = {k: v - before[k] for k, v in kernels._CAPTURED.items()}
         return out

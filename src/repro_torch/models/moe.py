@@ -58,6 +58,20 @@ def route(x, router_w, moe: MoEConfig):
     return gates, idx, aux
 
 
+def group_positions(se: torch.Tensor, E: int) -> torch.Tensor:
+    """Each slot's position within its expert's group, for slots sorted by
+    expert (``se``, values in [0, E)): its rank less the expert's first
+    rank. The reference takes that first rank by a scatter-min of the
+    ranks; in sorted order it is the number of slots of a smaller expert,
+    the exclusive cumsum of the per-expert counts (ops that DTensor can
+    shard, and no read on the host)."""
+    counts = torch.zeros(E, dtype=torch.int64, device=se.device).scatter_add(
+        0, se, torch.ones_like(se))
+    group_start = torch.cumsum(counts, 0) - counts
+    return torch.arange(se.shape[0], device=se.device) - \
+        group_start.gather(0, se)
+
+
 def dispatch_combine(x, gates, idx, moe: MoEConfig, expert_fn,
                      n_buckets: int = 0, cap: int = 0):
     """Run expert_fn over a capacity-bounded (E, C, d) buffer.
@@ -77,16 +91,14 @@ def dispatch_combine(x, gates, idx, moe: MoEConfig, expert_fn,
 
     order = torch.argsort(slot_expert, stable=True)    # group by expert
     se, st, sg = slot_expert[order], slot_token[order], slot_gate[order]
-    # position within expert group = rank - first rank of the expert
-    ranks = torch.arange(T * k, device=dev)
-    pos = ranks - torch.searchsorted(se, se)
+    pos = group_positions(se, E)
     keep = pos < C
 
     # each kept slot owns one buffer row; dropped slots all land on a spare
     # row past the end, which is cut off
     rows = torch.where(keep, se * C + pos, torch.full_like(pos, E * C))
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    buf[rows] = x[st]
+    buf = buf.index_put((rows,), x[st])
     buf = buf[:E * C].view(E, C, d)
     if os.environ.get("REPRO_MOE_SHARD_CAP", "0") == "1":
         # shard the capacity dim over the data axes too
@@ -97,8 +109,8 @@ def dispatch_combine(x, gates, idx, moe: MoEConfig, expert_fn,
     gathered = out_buf[se, torch.clamp(pos, max=C - 1)]  # (T*k, d_out)
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
     contrib = torch.empty((T * k, out_buf.shape[-1]), dtype=torch.float32,
-                          device=dev)
-    contrib[order] = gathered.to(torch.float32) * sg[:, None]
+                          device=dev).index_put(
+        (order,), gathered.to(torch.float32) * sg[:, None])
     # each token's k contributions, summed in expert order
     per_tok = contrib.view(T, k, -1).gather(
         1, torch.argsort(idx, dim=1)[..., None].expand(T, k, contrib.shape[-1]))

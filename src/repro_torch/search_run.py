@@ -52,26 +52,53 @@ def deterministic_convolutions():
 
 
 def trained_cnn(cfg, steps: int = 30, batch: int = 16, lr: float = 2e-3,
-                seed: int = 0, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+                seed: int = 0, device="cuda", graph: bool = True
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Lightly train a CNN on the synthetic cluster task so magnitude pruning
     has structure to exploit (no ImageNet at hand). Plain SGD through
     ``torch.autograd`` on the un-clipped forward, under
     ``deterministic_convolutions``: one seed gives one set of weights on
-    every run on the same card."""
+    every run on the same card.
+
+    The step is one static-buffer program, as the reference jits it: each
+    step's ``image_batch`` (drawn on the CPU) is copied into a static batch
+    and the parameters are updated in place, ``p - lr * g``. On the card
+    the first step runs eagerly on a side stream and is captured as a CUDA
+    graph, which every later step replays; ``graph=False`` runs every step
+    eagerly (what the captured warm-up is held against), as the CPU does.
+    Returns plain tensors that do not require grad."""
+    from repro_torch.kernels.graph import warm_and_capture
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     params = cnn.init_params(cfg, gen, device=dev)
-    paths = [(n, k) for n, p in params.items() for k in p]
+    # the forward reads aliases that require grad; the update writes the
+    # parameters' own storage
+    leaves = {n: {k: p.detach().requires_grad_(True) for k, p in d.items()}
+              for n, d in params.items()}
+    pairs = [(params[n][k], leaves[n][k]) for n in params for k in params[n]]
+    data = image_batch(cfg, batch, seed=seed, step=0, device=dev)
+
+    def sgd_step():
+        l, _ = cnn.loss(cfg, leaves, data)
+        grads = torch.autograd.grad(l, [a for _, a in pairs])
+        with torch.no_grad():
+            for (p, _), g in zip(pairs, grads):
+                p.copy_(p - lr * g)
+
+    captured = None
     with deterministic_convolutions():
         for i in range(steps):
-            leaves = [params[n][k].requires_grad_(True) for n, k in paths]
-            l, _ = cnn.loss(cfg, params, image_batch(cfg, batch, seed=seed,
-                                                     step=i, device=dev))
-            grads = torch.autograd.grad(l, leaves)
-            with torch.no_grad():
-                for (n, k), p, g in zip(paths, leaves, grads):
-                    params[n][k] = (p - lr * g).detach()
+            if i:
+                for k, v in image_batch(cfg, batch, seed=seed, step=i,
+                                        device="cpu").items():
+                    data[k].copy_(v)
+            if captured is not None:
+                captured.replay()
+            elif graph and dev.type == "cuda":
+                captured = warm_and_capture(sgd_step, None, dev)[0]
+            else:
+                sgd_step()
     return params
 
 
@@ -99,8 +126,9 @@ def search_compare(iters: int = 16, img_res: int = 224, seed: int = 0,
     (ResNet-18 by default) at its published widths — computation efficiency
     (throughput / area) of the best design so far, per TPE iteration.
     ``batch_size``: TPE proposals per round; ``None``/0 is the serial
-    ask/tell loop. Returns the Fig. 5 payload plus the evaluator and both
-    ``SearchResult``s under ``"ev"``, ``"hw_result"``, ``"sw_result"``."""
+    ask/tell loop. Returns the Fig. 5 payload (``setup_s`` holds the SGD
+    warm-up's ``warmup_s``) plus the evaluator and both ``SearchResult``s
+    under ``"ev"``, ``"hw_result"``, ``"sw_result"``."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(base_cfg, img_res=img_res)
     t0 = time.perf_counter()
@@ -109,7 +137,10 @@ def search_compare(iters: int = 16, img_res: int = 224, seed: int = 0,
     if dev.type == "cuda":
         build.lib()
     backend = dse_backend()
+    t1 = time.perf_counter()
     params = trained_cnn(cfg, steps=train_steps, seed=seed, device=dev)
+    _sync(dev)
+    warmup_s = time.perf_counter() - t1
     images = calib_images(img_res, seed, device=dev)
     ev = CNNEvaluator(cfg, params, images, FPGAModel(), budget=budget,
                       dse_iters=600, cost_cfg=base_cfg)
@@ -129,7 +160,7 @@ def search_compare(iters: int = 16, img_res: int = 224, seed: int = 0,
     return {
         "iters": iters, "batch_size": batch_size, "img_res": img_res,
         "device": str(dev), "dse_backend": backend,
-        "setup_s": setup_s, "search_s": search_s,
+        "setup_s": setup_s, "warmup_s": warmup_s, "search_s": search_s,
         "trials_per_s": 2 * iters / search_s,
         "hw_eff_curve": hw_res.running_best("eff"),
         "sw_eff_curve": sw_res.running_best("eff"),

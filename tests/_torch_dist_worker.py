@@ -11,7 +11,7 @@ Reads ``OUT_DIR/inputs.npz`` (written by the test) and writes one
   ``elastic_remesh``;
 * ranks 4-5 (float32 moments) and 6-7 (int8 moments): a reduced Qwen3 train
   step with its state sharded over (data 2, model 1), beside the unsharded
-  step from the same state.
+  step from the same state; ranks 4-5 also the same for reduced Mixtral.
 
 Imports torch and the port only.
 """
@@ -151,7 +151,7 @@ def remesh(rank, inp, out, mesh4, mesh2, tmp):
                remesh_bad_placements=np.array(bad_pl))
 
 
-def train(rank, inp, out, mesh, state_dtype):
+def train(rank, inp, out, mesh, state_dtype, arch="qwen3-0.6b", key="train"):
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.distributed.ctx import use_sharding
@@ -163,7 +163,7 @@ def train(rank, inp, out, mesh, state_dtype):
                                               make_train_step)
     if mesh.get_coordinate() is None:
         return
-    cfg = dataclasses.replace(reduce_config(get_config("qwen3-0.6b")),
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
                               dtype="float32")
     api = build_model(cfg)
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1,
@@ -184,11 +184,12 @@ def train(rank, inp, out, mesh, state_dtype):
         new, m = step(dst, distribute(batch, mesh, batch_spec(mesh, batch)))
         loss = float(m["loss"])
     a, b = _flat(ref["params"]), _flat(new["params"])
-    out.update(train_loss=loss, train_ref_loss=float(ref_m["loss"]),
-               train_param_err=max(float((a[k] - b[k].full_tensor())
-                                         .abs().max()) for k in a),
-               train_sharded=sum(any(str(q) != "R" for q in b[k].placements)
-                                 for k in b))
+    out.update({
+        f"{key}_loss": loss, f"{key}_ref_loss": float(ref_m["loss"]),
+        f"{key}_param_err": max(float((a[k] - b[k].full_tensor()).abs().max())
+                                for k in a),
+        f"{key}_sharded": sum(any(str(q) != "R" for q in b[k].placements)
+                              for k in b)})
 
 
 def worker(rank, tmp):
@@ -213,6 +214,7 @@ def worker(rank, tmp):
     remesh(rank, inp, out, mesh4, mesh2, tmp)
     train(rank, inp, out, mesh_f32, "float32")
     train(rank, inp, out, mesh_i8, "int8")
+    train(rank, inp, out, mesh_f32, "float32", "mixtral-8x7b", "moe_train")
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     dist.barrier()
     dist.destroy_process_group()

@@ -305,3 +305,24 @@ def test_dispatch_combine_is_deterministic_and_order_independent_of_k():
         lambda buf: jnp.einsum("ecd,edf->ecf", buf, jnp.asarray(W.numpy())))
     np.testing.assert_allclose(a.numpy(), np.asarray(jout), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,E,k,seed", [(40, 8, 3, 0), (96, 8, 2, 1),
+                                        (16, 5, 1, 2), (64, 3, 2, 3)])
+def test_group_positions_equal_the_references_scatter_min(T, E, k, seed):
+    """Each sorted slot's position in its expert's group, bit for bit: the
+    reference's scatter-min of the ranks (``.at[se].min``), and the rank
+    less ``searchsorted(se, se)`` that the port took before. E = 5 and the
+    small T leave experts without a slot."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, E, size=(T, k))
+    se = np.sort(idx.reshape(-1), kind="stable")
+    pos = M.group_positions(torch.as_tensor(se), E)
+    ranks = jnp.arange(T * k, dtype=jnp.int32)
+    jse = jnp.asarray(se.astype(np.int32))
+    start = jnp.full((E,), T * k, jnp.int32).at[jse].min(ranks)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(ranks - start[jse]))
+    t = torch.as_tensor(se)
+    np.testing.assert_array_equal(
+        pos.numpy(), (torch.arange(T * k) - torch.searchsorted(t, t)).numpy())
+    assert pos.dtype == torch.int64

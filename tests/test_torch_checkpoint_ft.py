@@ -24,8 +24,8 @@ from repro_torch.train.checkpoint import (CheckpointManager, latest_step,
 from repro_torch.train.fault_tolerance import (ResilienceReport, StepWatchdog,
                                                run_resilient)
 from repro_torch.train.optimizer import OptConfig, Packed8, init_opt_state
-from repro_torch.train.train_loop import (TrainConfig, init_train_state,
-                                          make_train_step)
+from repro_torch.train.train_loop import (TrainConfig, TrainProgram,
+                                          init_train_state, make_train_step)
 
 torch.set_num_threads(2)
 
@@ -105,7 +105,7 @@ def _setup(tmp_path, **tkw):
     gen = torch.Generator()
     gen.manual_seed(0)
     state = init_train_state(api.init, tcfg, gen, device="cpu")
-    step_fn = make_train_step(api.loss, tcfg)
+    step_fn = TrainProgram(make_train_step(api.loss, tcfg), "cpu")
     mgr = CheckpointManager(str(tmp_path), keep=3)
 
     def nb(i):

@@ -15,8 +15,9 @@ each test then reads its part of both results:
 * ``elastic_remesh`` of a world-4 checkpoint onto a world-2 mesh: every leaf
   bit for bit, with the placements of ``param_specs``;
 * a reduced Qwen3 train step with its state sharded at world 2 (data 2),
-  float32 and int8 moments: loss within 1e-6 relative and parameters within
-  1e-5 of the unsharded step.
+  float32 and int8 moments, and a reduced Mixtral one with float32
+  moments: loss within 1e-6 relative and parameters within 1e-5 of the
+  unsharded step.
 """
 import os
 import subprocess
@@ -163,3 +164,16 @@ def test_sharded_train_step_at_world_2_matches_unsharded(runs, state_dtype,
         assert abs(loss - ref) <= 1e-6 * abs(ref), (loss, ref)
         assert float(o["train_param_err"]) <= 1e-5
         assert int(o["train_sharded"]) >= 5
+
+
+def test_sharded_moe_train_step_at_world_2_matches_unsharded(runs):
+    """The MoE dispatch under a batch-sharded state: the expert ranks come
+    from a count, an exclusive cumsum and a gather, and the buffer writes
+    are out-of-place ``index_put``s, all of which DTensor shards."""
+    _, _, ranks = runs
+    for r in (4, 5):
+        o = ranks[r]
+        loss, ref = float(o["moe_train_loss"]), float(o["moe_train_ref_loss"])
+        assert abs(loss - ref) <= 1e-6 * abs(ref), (loss, ref)
+        assert float(o["moe_train_param_err"]) <= 1e-5
+        assert int(o["moe_train_sharded"]) >= 5

@@ -30,8 +30,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from _host_reads import HostReads, on_meta
 from repro_torch.configs import ASSIGNED, get_config, reduce_config
 from repro_torch.models import build_model
 from repro_torch.obs.trace import Tracer, set_tracer
@@ -46,7 +46,6 @@ torch.exp(torch.randn((1 << 17,), generator=torch.Generator().manual_seed(0)))
 
 ARCHS = sorted(ASSIGNED)
 S_MAX, STEPS = 24, 6
-aten = torch.ops.aten
 
 
 def _session(arch, *, slots=2):
@@ -95,51 +94,6 @@ def _plain_greedy(sess, prompts, kw, n):
 # --------------------------------------------------------------------- #
 # capture safety
 # --------------------------------------------------------------------- #
-_HOST_READS = {aten._local_scalar_dense, aten.nonzero, aten.bincount,
-               aten.masked_select, aten.equal, aten._unique, aten._unique2,
-               aten.unique_dim, aten.unique_consecutive}
-_INDEXING = {aten.index, aten.index_put, aten.index_put_,
-             aten._index_put_impl_}
-
-
-class HostReads(TorchDispatchMode):
-    """Notes every operation that would read a device value on the host,
-    or copy host data to the device, in a step whose tensors lie on a
-    device (``meta`` here, the card there): a CUDA graph can hold
-    neither."""
-
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        pkt = func.overloadpacket
-        if pkt in _HOST_READS:
-            self.found.append(str(func))
-        elif func is aten.repeat_interleave.Tensor and \
-                kwargs.get("output_size") is None:
-            self.found.append(f"{func} without output_size")
-        elif pkt in _INDEXING and any(
-                t is not None and t.dtype in (torch.bool, torch.uint8)
-                for t in args[1]):
-            self.found.append(f"{func} with a boolean index")
-        elif pkt is aten.copy_ and args[0].device.type != "cpu" and \
-                args[1].device.type == "cpu":
-            self.found.append(f"{func} from the host")
-        elif pkt is aten._to_copy and args[0].device.type == "cpu" and \
-                torch.device(kwargs.get("device") or "cpu").type != "cpu":
-            self.found.append(f"{func} from the host")
-        return func(*args, **kwargs)
-
-
-def _on_meta(tree):
-    if isinstance(tree, dict):
-        return {k: _on_meta(v) for k, v in tree.items()}
-    return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype,
-                               device="meta")
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_reads_nothing_on_the_host(arch):
     """The session's static step of every LM config on device tensors: no
@@ -147,7 +101,7 @@ def test_decode_step_reads_nothing_on_the_host(arch):
     sess = _session(arch)
     prompts, kw = _chunk(sess.api.cfg, 2, seed=0)
     _, cache, _ = sess._prefill_groups(prompts, kw)
-    params, mcache = _on_meta(sess.params), _on_meta(cache)
+    params, mcache = on_meta(sess.params), on_meta(cache)
     token = torch.zeros((2, 1), dtype=torch.int64, device="meta")
     with HostReads() as spy:
         logits = decode_into(sess.api, params, mcache, token)

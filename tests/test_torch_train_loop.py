@@ -3,7 +3,9 @@ training tests of ``tests/test_system.py``, run on the CPU at
 ``reduce_config`` size with the port's own data and initialisation (the
 reference's bars: accum 2 == accum 1 within 1e-5, remat within 1e-6), plus
 the ``remat`` keyword of every family's loss, ``train_state_shape`` and
-``examples/train_lm_torch.py --smoke --device cpu``."""
+``examples/train_lm_torch.py --smoke --device cpu``. Where the reference
+jits the step, the twin runs it through ``TrainProgram`` (eagerly, on the
+CPU)."""
 import dataclasses
 import os
 import sys
@@ -18,9 +20,9 @@ from repro_torch.models import build_model
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import run_resilient
 from repro_torch.train.optimizer import OptConfig, Packed8
-from repro_torch.train.train_loop import (TrainConfig, compute_grads,
-                                          init_train_state, make_train_step,
-                                          train_state_shape)
+from repro_torch.train.train_loop import (TrainConfig, TrainProgram,
+                                          compute_grads, init_train_state,
+                                          make_train_step, train_state_shape)
 
 torch.set_num_threads(2)
 # the first parallel torch.exp of a CPU process can come out ~1e-4 off in one
@@ -54,7 +56,7 @@ def test_loss_decreases_over_steps():
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=100),
                        accum=1, remat=None)
     state = init_train_state(api.init, tcfg, _gen(), device="cpu")
-    step = make_train_step(api.loss, tcfg)
+    step = TrainProgram(make_train_step(api.loss, tcfg), "cpu")
     losses = []
     for i in range(10):
         state, m = step(state, _batch(CFG, 8, 32, step=i))
@@ -140,7 +142,7 @@ def test_state_dtypes_train(sdtype):
     t = TrainConfig(opt=OptConfig(lr=1e-3, state_dtype=sdtype), accum=1,
                     remat=None)
     state = init_train_state(api.init, t, _gen(), device="cpu")
-    step = make_train_step(api.loss, t)
+    step = TrainProgram(make_train_step(api.loss, t), "cpu")
     l0 = None
     for i in range(6):
         state, m = step(state, _batch(CFG, 8, 32, step=i))
@@ -160,7 +162,7 @@ def test_compressed_grads_numerics():
                     accum=1, remat=None, compress_grads=True)
     state = init_train_state(api.init, t, _gen(), device="cpu")
     assert "ef" in state
-    step = make_train_step(api.loss, t)
+    step = TrainProgram(make_train_step(api.loss, t), "cpu")
     losses = []
     for i in range(8):
         state, m = step(state, _batch(CFG, 8, 32, step=i))
@@ -211,7 +213,8 @@ def test_sparse_training_with_activation_clipping():
             "ffn": torch.full((CFG.num_layers,), 0.05)}
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3), accum=1, remat=None)
     state = init_train_state(api.init, tcfg, _gen(), device="cpu")
-    step = make_train_step(api.loss, tcfg, sparsity=taus)
+    step = TrainProgram(make_train_step(api.loss, tcfg, sparsity=taus),
+                        "cpu")
     losses = []
     for i in range(6):
         state, m = step(state, _batch(CFG, 8, 32, step=i))
@@ -226,7 +229,7 @@ def test_end_to_end_resilient_training(tmp_path):
     api = build_model(cfg)
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3), accum=2, remat="full")
     state = init_train_state(api.init, tcfg, _gen(), device="cpu")
-    step = make_train_step(api.loss, tcfg)
+    step = TrainProgram(make_train_step(api.loss, tcfg), "cpu")
     mgr = CheckpointManager(str(tmp_path), keep=2)
     rep = run_resilient(step, state, lambda i: _batch(cfg, 4, 32, step=i),
                         steps=8, ckpt=mgr, ckpt_every=3,
