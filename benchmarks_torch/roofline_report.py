@@ -3,10 +3,12 @@
 
 The rows come from ``experiments/dryrun_torch.json``, which
 ``python -m repro_torch.launch.dryrun --all`` writes (never the JAX
-package's ``experiments/dryrun.json``). Nothing in the port is lowered to
-HLO, so a cell's collective term is unknown (``collective_s`` is ``None``)
-and the table prints ``—`` there; the compute and memory terms are the
-shape-derived ones of ``repro_torch.analysis.roofline``.
+package's ``experiments/dryrun.json``): each cell's sharded step was run on
+one rank of a ``fake`` process group and its flops, collective bytes by op
+and peak bytes counted from the operations that ran
+(``repro_torch.analysis.op_costs``). The table is the reference's, terms
+from the H100 data sheet's peaks (``repro_torch.analysis.roofline``);
+under each row, the collectives by op (count x result bytes per rank).
 
     python -m benchmarks_torch.roofline_report [--mesh pod16x16] [--path FILE]
 """
@@ -25,10 +27,11 @@ def load(path: str = DRYRUN_PATH):
         return json.load(f)
 
 
-def _sci(v) -> str:
-    """A time term as the reference's ``:10.3e``; ``—`` where it is not
-    known."""
-    return f"{'—':>10s}" if v is None else f"{v:10.3e}"
+def _by_op(r) -> str:
+    """The row's collectives: ``op count x bytes`` per rank, by op."""
+    ops = r.get("coll_by_op") or {}
+    return "  ".join(f"{op} {c} x {b:.3e} B" for op, (c, b) in
+                     sorted(ops.items())) or "none"
 
 
 def run(mesh: str = "pod16x16", path: str = DRYRUN_PATH, device="cuda",
@@ -48,10 +51,11 @@ def run(mesh: str = "pod16x16", path: str = DRYRUN_PATH, device="cuda",
           f"{'coll_s':>10s} {'dom':>10s} {'useful':>7s} {'roofl%':>7s} "
           f"{'HBM GiB':>8s}")
     for r in rows:
-        print(f"{r['arch']:18s} {r['shape']:12s} {_sci(r['compute_s'])} "
-              f"{_sci(r['memory_s'])} {_sci(r['collective_s'])} "
+        print(f"{r['arch']:18s} {r['shape']:12s} {r['compute_s']:10.3e} "
+              f"{r['memory_s']:10.3e} {r['collective_s']:10.3e} "
               f"{r['dominant']:>10s} {r['useful_ratio']:7.2f} "
               f"{100 * r['roofline_frac']:6.1f}% {r['hbm_total_gib']:8.1f}")
+        print(f"  collectives: {_by_op(r)}")
     emit("roofline.cells", 0.0, f"n={len(rows)} mesh={mesh}")
     return rows
 

@@ -86,7 +86,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
            run(smoke=True) on the card called directly (obs in the
            reference's full mode, its overhead gate the least of 5 paired
            ratios, in a process of its own): roofline (over one
-           dry-run cell laid out in its own process), lm_dse, sim, fleet,
+           dry-run cell cut to 2 layers, run in its own process: its
+           collective term and collectives by op must be there), lm_dse,
+           sim, fleet,
            chaos, obs, with all of their own gates (the 1M-event engine race >= 10x, the LM DSE >=
            10x, tracer overhead < 3 %); fleet's replay and chaos's
            zero_fault and replay serve Qwen3-0.6B at full width in bf16 and
@@ -121,9 +123,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
            make_pipelined_fn == the sequential loop, bit for bit; then the
            train phase's Qwen3-0.6B step with its state laid out as DTensors
            by param_specs under use_sharding (1 warm-up and 4 timed steps, one
-           profiled), beside the train phase's numbers; one dry-run cell
-           (qwen3-0.6b train_4k pod2x16x16, fake backend, its own process):
-           bytes per rank; no SPE kernel launched
+           profiled), beside the train phase's numbers; one more step
+           under op_costs.OpCounter on the card's tensors, whose counted
+           flops must equal the same step's count on meta tensors (a
+           subprocess, fake backend); one dry-run cell (qwen3-0.6b
+           train_4k pod2x16x16 at full depth, fake backend, its own
+           process): its sharded step run and counted (bytes per rank,
+           flops, collectives by op, temp bytes, run_s); no SPE kernel
+           launched
   deterministic  a process of its own, with CUBLAS_WORKSPACE_CONFIG=:4096:8
            and torch.use_deterministic_algorithms: the restart gate (int8
            state, each run through its own TrainProgram; a crash and a
@@ -1469,23 +1476,34 @@ def phase_fleet(sess) -> dict:
     return out
 
 
-def _dryrun_file(path: str, single_pod: bool = True) -> dict:
+DRY_LAYERS = 2                      # the roofline twin's cell depth
+
+
+def _dryrun_file(path: str, single_pod: bool = True,
+                 layers: int = 0) -> dict:
     """One dry-run cell (qwen3-0.6b, train_4k, pod16x16 unless
-    ``single_pod`` is false) in a process of its own on the ``fake``
-    backend, away from the card, written to ``path``; returns its record."""
+    ``single_pod`` is false, at full depth unless ``layers`` cuts it, full
+    width) in a process of its own on the ``fake`` backend, away from the
+    card, written to ``path``: its sharded step run on one rank's meta
+    shards and counted. Returns its record; fails unless the step ran and
+    counted collectives."""
     key = "qwen3-0.6b|train_4k|" + ("pod16x16" if single_pod
-                                    else "pod2x16x16")
+                                    else "pod2x16x16") + \
+        (f"|L{layers}" if layers else "")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen3-0.6b", "--shape", "train_4k",
-         "--single-pod" if single_pod else "--multi-pod", "--out", path],
-        capture_output=True, text=True, timeout=300,
+         "--single-pod" if single_pod else "--multi-pod", "--out", path]
+        + (["--layers", str(layers)] if layers else []),
+        capture_output=True, text=True, timeout=420,
         env=dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES=""))
     if r.returncode != 0 or not os.path.exists(path):
         fail(f"the dry run failed: {r.stderr[-2000:]}")
     with open(path) as f:
         rec = json.load(f)[key]
-    if rec.get("status") != "ok":
+    if rec.get("status") != "ok" or not rec.get("ran") or not (
+            rec["collective_s"] and rec["collective_s"] > 0
+            and rec["flops_per_device"] > 0 and rec["coll_by_op"]):
         fail(f"dry-run cell {key}: {rec}")
     return rec
 
@@ -1544,7 +1562,7 @@ def phase_bench_twins(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         dry_path = os.path.join(tmp, "dryrun_torch.json")
         t0 = time.perf_counter()
-        dry = _dryrun_file(dry_path)
+        dry = _dryrun_file(dry_path, layers=DRY_LAYERS)
         dry_s = time.perf_counter() - t0
         kw = dict(smoke=True, device=dev, out_dir=tmp)
         for name, job in (
@@ -1565,9 +1583,9 @@ def phase_bench_twins(dev) -> dict:
                      f"{launches}")
             sections[name] = payload
         written = sorted(os.listdir(tmp))
-    if sections["roofline"] != [dry] or dry["collective_s"] is not None:
+    if sections["roofline"] != [dry] or dry["collective_s"] is None:
         fail(f"bench_twins: roofline rows {sections['roofline']} are not "
-             f"the dry-run record")
+             f"the dry-run record, or it has no collective term")
     want = {f"{n}_h100.json" for n in ("lm_dse_bench", "sim_bench",
                                         "fleet_bench", "chaos_bench",
                                         "obs_bench", "obs_trace")}
@@ -1621,7 +1639,9 @@ def phase_bench_twins(dev) -> dict:
     gates = {
         "roofline": {"rows": len(p["roofline"]),
                      "rows_equal_dry_run_record": True,
-                     "collective_s": None},
+                     "collective_s": dry["collective_s"],
+                     "coll_by_op": dry["coll_by_op"],
+                     "run_s": dry["run_s"]},
         "lm_dse": {"worst_speedup": min(r["speedup"]
                                         for r in p["lm_dse"]["dse"]),
                    "gate": ">= 10"},
@@ -2252,17 +2272,64 @@ def gate_pipeline(dev) -> dict:
 
 
 def dryrun_cell() -> dict:
-    """One dry-run cell (qwen3-0.6b, train_4k, pod2x16x16) in a process of
-    its own on the ``fake`` backend, away from the card: the launch path's
-    smoke test (its bytes per rank are shape arithmetic, not a
-    measurement of the card)."""
+    """One dry-run cell (qwen3-0.6b, train_4k, pod2x16x16, all 28 layers
+    at full width) in a process of its own on the ``fake`` backend, away
+    from the card: the launch path's smoke test. Its step runs on one
+    rank's meta shards; flops, collective bytes by op and peak bytes are
+    counted from the operations that ran, and its terms are modeled from
+    the H100 data sheet's peaks, not measurements of the card."""
     with tempfile.TemporaryDirectory() as tmp:
         rec = _dryrun_file(os.path.join(tmp, "dryrun_torch.json"),
                            single_pod=False)
-    return {k: rec[k] for k in ("key", "chips", "bytes_per_rank",
-                                "arg_bytes", "compute_s", "memory_s",
+    return {k: rec[k] for k in ("key", "chips", "ran", "bytes_per_rank",
+                                "arg_bytes", "temp_bytes",
+                                "flops_per_device", "coll_bytes_per_device",
+                                "coll_by_op", "compute_s", "memory_s",
                                 "collective_s", "dominant", "fits_hbm",
-                                "layout_s")}
+                                "layout_s", "run_s")}
+
+
+META_COUNT = """
+import json, sys, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.analysis.op_costs import OpCounter
+from repro_torch.configs import get_config
+from repro_torch.distributed.ctx import use_sharding
+from repro_torch.distributed.sharding import batch_spec, distribute, param_specs
+from repro_torch.models import build_model
+from repro_torch.train.train_loop import (TrainConfig, init_train_state,
+                                          make_train_step)
+arch, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+api = build_model(get_config(arch))
+tcfg = TrainConfig(accum=2, remat="full")
+st = init_train_state(api.init, tcfg, torch.Generator(), device="meta")
+st = distribute(st, mesh, param_specs(mesh, st))
+b = {"tokens": torch.zeros((B, S), dtype=torch.int64, device="meta")}
+b = distribute(b, mesh, batch_spec(mesh, b))
+with use_sharding(mesh), OpCounter() as c:
+    c.track(st, b)
+    make_train_step(api.loss, tcfg)(st, b)
+print("RESULT " + json.dumps(c.costs.to_json()))
+"""
+
+
+def _meta_count() -> dict:
+    """The distributed phase's step counted on meta tensors, in a process
+    of its own on the ``fake`` backend (world 1, a (1, 1) mesh): the same
+    model, recipe (accum 2, remat "full") and batch shape."""
+    r = subprocess.run([sys.executable, "-c", META_COUNT, TRAIN_ARCH,
+                        str(TRAIN_BATCH), str(TRAIN_SEQ)],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=SRC,
+                                CUDA_VISIBLE_DEVICES=""))
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    if r.returncode != 0 or not line:
+        fail(f"distributed: the meta count failed: {r.stderr[-2000:]}")
+    return json.loads(line[-1][len("RESULT "):])
 
 
 def phase_distributed(dev, card, train) -> dict:
@@ -2271,9 +2338,12 @@ def phase_distributed(dev, card, train) -> dict:
     step with its state and batches laid out as DTensors by ``param_specs``
     / ``batch_spec`` on the (1, 1) mesh under ``use_sharding``, beside the
     train phase's own numbers, so that DTensor's host cost per step reads
-    off; then one dry-run cell."""
+    off; one more step on the card under ``op_costs.OpCounter``, whose
+    counted flops must equal the same step's count on meta tensors (the
+    dry run's way); then one dry-run cell."""
     import torch.distributed as dist
     from repro_torch import kernels
+    from repro_torch.analysis.op_costs import OpCounter
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataPipeline
@@ -2321,7 +2391,17 @@ def phase_distributed(dev, card, train) -> dict:
                     losses.append(float(m["loss"]))
                 b = batch()
                 busy = _profile_step(lambda: step_fn(state, b))
-            peak = torch.cuda.max_memory_allocated()
+                peak = torch.cuda.max_memory_allocated()
+                b = batch()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                with OpCounter() as counter:
+                    counter.track(state, b)
+                    state, m = step_fn(state, b)
+                torch.cuda.synchronize()
+                card_peak = torch.cuda.max_memory_allocated() - base
+                card_costs = counter.costs.to_json()
             pipe.close()
             kinds = sorted({type(x).__name__ for _, x, _ in
                             _leaf_pairs(state, state)})
@@ -2332,6 +2412,20 @@ def phase_distributed(dev, card, train) -> dict:
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)) or kinds != ["DTensor"]:
         fail(f"distributed: losses {losses}, state leaves {kinds}")
+    meta_costs = _meta_count()
+    counted = {"card_flops": card_costs["flops"],
+               "meta_flops": meta_costs["flops"],
+               "card_collective_bytes": card_costs["collective_bytes"],
+               "meta_collective_bytes": meta_costs["collective_bytes"],
+               "card_counted_peak_bytes": card_costs["peak_bytes"],
+               "card_arg_bytes": card_costs["arg_bytes"],
+               "card_allocated_peak_over_start_bytes": card_peak,
+               "card_ops": card_costs["n_ops"], "meta_ops": meta_costs["n_ops"]}
+    print(f"[distributed] counted flops: card {counted['card_flops']:.6e}, "
+          f"meta {counted['meta_flops']:.6e}", flush=True)
+    if card_costs["flops"] != meta_costs["flops"] or card_costs["flops"] <= 0:
+        fail(f"distributed: the card's counted flops differ from the meta "
+             f"count: {counted}")
     t0 = time.perf_counter()
     dry = dryrun_cell()
     dry["seconds"] = time.perf_counter() - t0
@@ -2358,7 +2452,8 @@ def phase_distributed(dev, card, train) -> dict:
                 **{k: train["eager"].get(k) for k in (
                     "device_ops_per_step", "busy_ms")}},
             "dtensor_host_ms_per_step": med - train["eager_step_ms"],
-            "dryrun": dry, "spe_kernel_launches": launches}
+            "op_costs": counted, "dryrun": dry,
+            "spe_kernel_launches": launches}
 
 
 def gate_sharded_equality(cfg, dev) -> dict:

@@ -1,25 +1,34 @@
-"""Roofline terms of a dry-run cell, from its shapes.
+"""Roofline terms of a dry-run cell, from the operations its step ran.
 
 Conventions (important — everything is PER RANK):
-    compute_s    = (model flops / ranks) / BF16_FLOPS
+    compute_s    = counted flops / BF16_FLOPS
     memory_s     = (modeled HBM traffic / ranks) / HBM_BYTES_PER_S
-    collective_s = None
+    collective_s = counted collective result bytes / NVLINK_BYTES_PER_S
 
-The reference reads its compute and collective terms from the compiled HLO
-(``hlo_costs.analyze``, ``parse_collectives``); nothing on this side is
-lowered to HLO, so the port's report takes the compute term from
-``core.perf_model.model_flops``, the memory term from ``analytic_traffic``,
-and leaves the collective term unknown (``None``, not 0). The peaks are the
-H100 SXM data sheet's (dense bf16 989 TFLOP/s, 3.35 TB/s, 80 GB of HBM):
-``core.perf_model``'s ``PEAK_FLOPS`` / ``HBM_BW`` / ``ICI_BW`` are TPU
-constants of the hardware *model*, not this device's.
+Where the reference parses its compiled HLO (``hlo_costs.analyze``,
+``parse_collectives``), the port runs the sharded step on one rank of a
+``fake`` process group and counts what ran (``analysis.op_costs``): dot and
+convolution flops, collective result bytes by op, and the peak of live
+local bytes (arguments, temporaries, outputs). The memory term is
+``analytic_traffic``, as in the reference. The peaks are the H100 SXM data
+sheet's (dense bf16 989 TFLOP/s, 3.35 TB/s, 80 GB of HBM, NVLink 4 at 900
+GB/s aggregate): ``core.perf_model``'s ``PEAK_FLOPS`` / ``HBM_BW`` /
+``ICI_BW`` are TPU constants of the hardware *model*, not this device's.
+Every term is modeled from data-sheet peaks, not measured, and is the term
+of the port's own sharded program: the collective bytes are what its
+DTensor layout moves, gathers that its repairs add included (a decode
+cache split over 'model' on the sequence is gathered whole where the KV
+heads do not divide that axis), and NVLink's rate is one that 256 or 512
+ranks across nodes do not reach. So the collective term is neither a lower
+nor an upper bound for a deployment.
 """
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
 from typing import Dict, Optional, Tuple
 
-from repro_torch.kernels.bench_util import BF16_FLOPS, HBM_BYTES_PER_S
+from repro_torch.kernels.bench_util import (BF16_FLOPS, HBM_BYTES_PER_S,
+                                           NVLINK_BYTES_PER_S)
 
 HBM_CAPACITY_BYTES = 80e9        # H100 SXM, NVIDIA data sheet
 
@@ -68,10 +77,10 @@ class CellReport:
     chips: int
     flops_per_device: float
     bytes_per_device: float
-    coll_bytes_per_device: Optional[float]
+    coll_bytes_per_device: float
     compute_s: float
     memory_s: float
-    collective_s: Optional[float]
+    collective_s: float
     dominant: str
     bound_s: float
     model_flops: float
@@ -92,27 +101,35 @@ class CellReport:
 
 
 def build_report(*, arch: str, shape: str, mesh_name: str, chips: int,
-                 model_flops: float, traffic: Dict[str, float],
-                 arg_bytes: int, note: str = "") -> CellReport:
-    """A cell's roofline from its shapes (module docstring): ``arg_bytes``
-    is the per-rank bytes of the sharded state the step takes (no
-    temporaries are known without a compiler, so none are counted)."""
-    flops = model_flops / chips
+                 model_flops: float, traffic: Dict[str, float], costs,
+                 note: str = "") -> CellReport:
+    """A cell's roofline from the counted costs of its step on one rank
+    (``op_costs.OpCosts``): flops and collective bytes as counted,
+    ``temp_bytes`` the peak of live bytes less the arguments, the HBM fit
+    from that peak (module docstring)."""
+    flops = float(costs.flops)
     mem_bytes_dev = traffic["total"] / chips
+    cbytes = float(costs.collective_bytes)
     compute_s = flops / BF16_FLOPS
     memory_s = mem_bytes_dev / HBM_BYTES_PER_S
-    terms = {"compute": compute_s, "memory": memory_s}
+    collective_s = cbytes / NVLINK_BYTES_PER_S
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
     dominant = max(terms, key=terms.get)
     bound = max(terms.values())
-    rep = CellReport(
+    model_time = (model_flops / chips) / BF16_FLOPS
+    return CellReport(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         flops_per_device=flops, bytes_per_device=mem_bytes_dev,
-        coll_bytes_per_device=None,
-        compute_s=compute_s, memory_s=memory_s, collective_s=None,
+        coll_bytes_per_device=cbytes,
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         dominant=dominant, bound_s=bound, model_flops=model_flops,
         useful_ratio=model_flops / max(flops * chips, 1e-9),
-        arg_bytes=int(arg_bytes), hbm_total_gib=arg_bytes / 2 ** 30,
-        fits_hbm=arg_bytes <= HBM_CAPACITY_BYTES, note=note,
-        roofline_frac=compute_s / max(bound, 1e-12),
+        arg_bytes=int(costs.arg_bytes),
+        temp_bytes=int(costs.peak_bytes - costs.arg_bytes),
+        hbm_total_gib=costs.peak_bytes / 2 ** 30,
+        fits_hbm=costs.peak_bytes <= HBM_CAPACITY_BYTES,
+        coll_by_op={k: (int(c), int(b))
+                    for k, (c, b) in sorted(costs.coll_by_op.items())},
+        note=note, roofline_frac=model_time / max(bound, 1e-12),
         traffic={k: float(v) for k, v in traffic.items()})
-    return rep

@@ -16,6 +16,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12               # float32 outside the tensor cores
 BF16_FLOPS = 989e12              # dense bf16 tensor-core rate
+NVLINK_BYTES_PER_S = 900e9       # H100 SXM, NVLink 4, aggregate per GPU
 
 
 def time_ms(fn, *, warmup: int = 3, min_reps: int = 5, budget_ms: float = 60.0

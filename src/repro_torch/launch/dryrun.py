@@ -1,21 +1,27 @@
-"""Multi-pod dry run: lay out every (arch x shape x mesh) cell on a mesh of 256
-or 512 ranks, without hardware.
+"""Multi-pod dry run: run every (arch x shape x mesh) cell's sharded step on
+one rank of a mesh of 256 or 512, without hardware.
 
 For each cell this shows:
   * the sharding rules are coherent: every leaf of the cell's state, batch
     and cache is placed as a ``DTensor`` by ``param_specs`` / ``batch_spec``
     / ``cache_spec`` through ``distribute_tensor`` on the production mesh,
+    and the whole step (``make_train_step`` with the cell's ``TrainConfig``,
+    the prefill, or the decode step) runs on those ``DTensor``s, every
+    redistribution it needs included,
   * the bytes per rank of each part (the local shards' sizes),
-  * the roofline terms from the shapes (``analysis.roofline``).
+  * the roofline terms (``analysis.roofline``): per-rank flops, collective
+    bytes by op and the peak of live bytes, counted by
+    ``analysis.op_costs`` from the operations that ran.
 
-Nothing is compiled and nothing is allocated: the state is on the ``meta``
-device and the process group is ``fake`` (this process is rank 0 of 256 or
-512 and every collective is a no-op), so run it in a process of its own.
-Where the reference lowers and compiles the step, the port builds the step
-(``make_train_step`` / prefill / decode with the cell's tuning) and places
-its arguments; the bytes per rank are shape arithmetic, not a measurement.
-``cache_scatter`` has no effect here: the port's decode cache is already
-written in place by row.
+The state is on the ``meta`` device and the process group is ``fake``
+(this process is rank 0 of 256 or 512 and every collective is a no-op), so
+nothing is computed or allocated and no time is a device's; run it in a
+process of its own. Where the reference lowers and compiles the step and
+reads its HLO, the port runs it: ``run_s`` is the host's time for that,
+DTensor's dispatch of every operation (minutes for the largest cells).
+A step that raises makes its cell an error. ``cache_scatter`` has no
+effect here: the port writes a sharded decode cache through a one-hot
+select either way.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -36,6 +42,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.analysis.op_costs import OpCounter, OpCosts
 from repro_torch.analysis.roofline import analytic_traffic, build_report
 from repro_torch.configs import (ASSIGNED, SHAPE_BY_NAME, SHAPES,
                                  cell_supported, get_config)
@@ -130,19 +137,31 @@ TUNINGS = {
 
 
 def lay_out_cell(arch: str, shape_name: str, multi_pod: bool,
-                 tuning: Optional[CellTuning] = None):
+                 tuning: Optional[CellTuning] = None,
+                 layers: Optional[int] = None):
     """The counterpart of the reference's ``lower_cell``: the cell's step
-    function and its arguments placed on the production mesh. Returns
-    (laid, note, traffic), or (None, why) for a cell that is not run.
-    ``laid`` holds ``fn`` (the step, not run), ``loss_fn`` / ``prefill_fn``
-    where the cell has one, ``tcfg`` for a train cell, ``rules``, ``mesh``
-    and ``parts``: each argument as a tree of ``DTensor``s."""
+    function and its arguments placed on the production mesh (``layers``
+    cuts the depth, the widths stay). Returns (laid, note, traffic), or
+    (None, why) for a cell that is not run; see ``lay_out``."""
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = SHAPE_BY_NAME[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:
         return None, why
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+    return lay_out(cfg, shape, mesh, train_tcfg(arch), tuning)
+
+
+def lay_out(cfg, shape, mesh, tcfg: TrainConfig,
+            tuning: Optional[CellTuning] = None):
+    """``cfg``'s step for ``shape`` and its arguments laid out on ``mesh``
+    (a train cell starts from ``tcfg``, then the tuning). Returns (laid,
+    note, traffic). ``laid`` holds ``fn`` (the step; ``run_step`` runs
+    it), ``loss_fn`` / ``prefill_fn`` where the cell has one, ``tcfg`` for
+    a train cell, ``rules``, ``mesh`` and ``parts``: each argument as a
+    tree of ``DTensor``s."""
     api = build_model(cfg)
     specs = input_specs(cfg, shape)
     t = tuning or CellTuning()
@@ -171,7 +190,6 @@ def lay_out_cell(arch: str, shape_name: str, multi_pod: bool,
     laid: Dict[str, Any] = {"mesh": mesh, "rules": rules}
     with shard_ctx.use_sharding(mesh, rules=rules):
         if shape.kind == "train":
-            tcfg = train_tcfg(arch)
             if t.accum is not None:
                 tcfg = dataclasses.replace(tcfg, accum=t.accum)
             if t.cast_bf16:
@@ -259,18 +277,45 @@ def fake_world(n: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
+def step_args(laid) -> tuple:
+    """The laid-out step's arguments: (state, batch) for a train cell,
+    (params, batch) for a prefill, (params, cache, token) for a decode."""
+    p = laid["parts"]
+    if "opt" in p:
+        return {"params": p["params"], "opt": p["opt"]}, p["batch"]
+    if "cache" in p:
+        return p["params"], p["cache"], p["token"]
+    return p["params"], p["batch"]
+
+
+def run_step(laid) -> OpCosts:
+    """Run the laid-out step once under its sharding context and count
+    this rank's operations; its arguments count as live bytes."""
+    args = step_args(laid)
+    with shard_ctx.use_sharding(laid["mesh"], rules=laid["rules"]), \
+            OpCounter() as counter:
+        counter.track(args)
+        laid["fn"](*args)
+    return counter.costs
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             verbose: bool = True, tuned: bool = False) -> Dict[str, Any]:
+             verbose: bool = True, tuned: bool = False,
+             layers: Optional[int] = None) -> Dict[str, Any]:
+    """Lay the cell out and run its step once (``layers`` cuts the depth;
+    its key then ends in ``|L<layers>``)."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     chips = 512 if multi_pod else 256
-    key = f"{arch}|{shape_name}|{mesh_name}" + ("|tuned" if tuned else "")
+    key = f"{arch}|{shape_name}|{mesh_name}" + ("|tuned" if tuned else "") \
+        + (f"|L{layers}" if layers else "")
     tuning = TUNINGS.get((arch, shape_name)) if tuned else None
     if tuned and tuning is None:
         return {"key": key, "status": "skipped", "note": "no tuning defined"}
     t0 = time.time()
     try:
         fake_world(chips)
-        out = lay_out_cell(arch, shape_name, multi_pod, tuning=tuning)
+        out = lay_out_cell(arch, shape_name, multi_pod, tuning=tuning,
+                           layers=layers)
         if out[0] is None:
             rec = {"key": key, "status": "skipped", "note": out[1]}
             if verbose:
@@ -279,23 +324,30 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         laid, note, traffic = out
         t_layout = time.time() - t0
         per_rank = {k: _local_bytes(v) for k, v in laid["parts"].items()}
+        costs = run_step(laid)
+        t_run = time.time() - t0 - t_layout
         cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         shape = SHAPE_BY_NAME[shape_name]
         rep = build_report(arch=arch, shape=shape_name, mesh_name=mesh_name,
                            chips=chips, model_flops=model_flops(cfg, shape),
-                           traffic=traffic, arg_bytes=sum(per_rank.values()),
-                           note=note)
-        rec = {"key": key, "status": "ok", "layout_s": round(t_layout, 1),
-               "bytes_per_rank": per_rank, **rep.to_json()}
+                           traffic=traffic, costs=costs, note=note)
+        rec = {"key": key, "status": "ok", "ran": True,
+               "layout_s": round(t_layout, 1), "run_s": round(t_run, 1),
+               "n_ops": costs.n_ops, "bytes_per_rank": per_rank,
+               **rep.to_json()}
         if verbose:
             _log.info(f"OK {key} compute={rep.compute_s:.3e}s "
-                      f"mem={rep.memory_s:.3e}s dominant={rep.dominant} "
-                      f"state/rank={rep.hbm_total_gib:.2f}GiB "
-                      f"(layout {t_layout:.1f}s)")
+                      f"mem={rep.memory_s:.3e}s "
+                      f"coll={rep.collective_s:.3e}s dominant={rep.dominant} "
+                      f"peak/rank={rep.hbm_total_gib:.2f}GiB "
+                      f"(layout {t_layout:.1f}s, run {t_run:.1f}s)")
         return rec
     except Exception as e:                                     # noqa: BLE001
         traceback.print_exc()
-        return {"key": key, "status": "error", "error": f"{type(e).__name__}: {e}"}
+        return {"key": key, "status": "error", "ran": False,
+                "error": f"{type(e).__name__}: {e}"}
 
 
 def load_results(path: str) -> Dict[str, Any]:
@@ -323,8 +375,13 @@ def main() -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tuned", action="store_true",
                     help="apply the hill-climb tunings (separate keys)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every model to this depth (widths kept)")
     ap.add_argument("--out", default=os.path.abspath(RESULTS))
     args = ap.parse_args()
+    # meta operations use no threads, and the recurrences run on host
+    # zeros are many tiny operations, slower with a pool of threads
+    torch.set_num_threads(1)
 
     meshes = []
     if args.multi_pod or not args.single_pod:
@@ -343,13 +400,15 @@ def main() -> None:
             for shape_name in shapes:
                 key = f"{arch}|{shape_name}|" + \
                     ("pod2x16x16" if mp else "pod16x16") + \
-                    ("|tuned" if args.tuned else "")
+                    ("|tuned" if args.tuned else "") + \
+                    (f"|L{args.layers}" if args.layers else "")
                 if args.tuned and (arch, shape_name) not in TUNINGS:
                     continue
                 if not args.force and res.get(key, {}).get("status") == "ok":
                     _log.info(f"cached {key}")
                     continue
-                rec = run_cell(arch, shape_name, mp, tuned=args.tuned)
+                rec = run_cell(arch, shape_name, mp, tuned=args.tuned,
+                               layers=args.layers)
                 res[key] = rec
                 save_results(args.out, res)
     n_ok = sum(1 for r in res.values() if r.get("status") == "ok")

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import ctx as shard_ctx
 from repro_torch.distributed.ctx import shard
 
 NEG_INF = -1e30
@@ -42,9 +43,35 @@ def _len_bias(k_pos, kv_len) -> torch.Tensor:
                        device=valid.device).masked_fill_(~valid, NEG_INF)
 
 
+def _on_shards(fn, q, k, v, kv_len, **kw):
+    """``fn``, one of the attention functions here, called with sharded
+    operands (``DTensor``s), run on each rank's own shards: attention is
+    independent per batch row and KV head, so each rank attends its rows
+    and, where the KV heads divide the 'kv_heads' axis, its KV heads with
+    their query heads, as GSPMD partitions the reference's attention under
+    its batch / kv_heads constraints."""
+    heads = "kv_heads" if shard_ctx.divides("kv_heads", k.shape[2]) else None
+    spec = ("batch", None, heads, None)
+    args, specs = [q, k, v], [spec] * 3
+    if kv_len is not None:
+        args.append(kv_len)
+        specs.append(("batch",))
+
+    def local(q, k, v, kv_len=None):
+        return (fn(q, k, v, kv_len=kv_len, **kw),)
+    return shard_ctx.per_rank(local, args, specs, like=(0,))[0]
+
+
+def _sharded(*ts) -> bool:
+    return any(shard_ctx.is_sharded(t) for t in ts)
+
+
 def reference_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                         kv_len: Optional[torch.Tensor] = None):
     """Naive O(S^2)-memory oracle. q:(B,Sq,H,D) k,v:(B,Sk,KV,D)."""
+    if _sharded(q, k, v, kv_len):
+        return _on_shards(reference_attention, q, k, v, kv_len,
+                          causal=causal, window=window, q_offset=q_offset)
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     Dv = v.shape[-1]
@@ -90,6 +117,10 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_offset=0,
       blockwise_full  visit every KV block, masking (baseline)
       banded          visit only KV blocks that intersect the causal/window band
     """
+    if _sharded(q, k, v, kv_len):
+        return _on_shards(blockwise_attention, q, k, v, kv_len,
+                          causal=causal, window=window, q_offset=q_offset,
+                          block_k=block_k, impl=impl)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -148,6 +179,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=0):
     Attends to positions < kv_len (per sequence); with a window only the last
     ``window`` positions are valid. O(Smax) per step.
     """
+    if _sharded(q, k_cache, v_cache, kv_len):
+        return _on_shards(decode_attention, q, k_cache, v_cache, kv_len,
+                          window=window)
     B, _, H, D = q.shape
     KV = k_cache.shape[2]
     G = H // KV

@@ -9,6 +9,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed import ctx as shard_ctx
+from repro_torch.distributed.ctx import reduce_partial
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -166,7 +169,14 @@ def remat_fn(fn, remat):
         raise ValueError(f"remat must be None, 'full' or 'dots': {remat!r}")
 
     def run(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+        # the recomputation may run on another thread (autograd's device
+        # thread on the card): it sees the sharding context this call saw
+        saw = shard_ctx.current()
+
+        def again(*a, **k):
+            with shard_ctx.installed(saw):
+                return fn(*a, **k)
+        return checkpoint(again, *args, use_reentrant=False, **kw, **kwargs)
     return run
 
 
@@ -177,5 +187,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Numerically-stable CE in f32; logits (…, V), labels (…,) int."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return lse - gold
+    # a gather over a vocabulary sharded as a DTensor is a pending sum
+    gold = reduce_partial(torch.gather(logits, -1,
+                                       labels.to(torch.int64)[..., None]))
+    return lse - gold[..., 0]

@@ -22,6 +22,7 @@ import os
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import ctx as shard_ctx
 from repro_torch.models.common import act_clip, activation
 
 
@@ -99,7 +100,7 @@ def dispatch_combine(x, gates, idx, moe: MoEConfig, expert_fn,
     rows = torch.where(keep, se * C + pos, torch.full_like(pos, E * C))
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     buf = buf.index_put((rows,), x[st])
-    buf = buf[:E * C].view(E, C, d)
+    buf = shard_ctx.reshape(buf[:E * C], E, C, d)
     if os.environ.get("REPRO_MOE_SHARD_CAP", "0") == "1":
         # shard the capacity dim over the data axes too
         from repro_torch.distributed.ctx import shard

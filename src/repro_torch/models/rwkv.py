@@ -14,11 +14,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.ctx import shard
+from repro_torch.distributed.ctx import per_rank, reshape, shard
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
                                        embed_init, remat_fn, rmsnorm,
                                        softmax_xent, unstack_layers)
-from repro_torch.models.transformer import _cast, _embed, _layer_taus
+from repro_torch.models.transformer import (_cast, _embed, _layer_taus,
+                                           _residual)
 
 MIX_KEYS = ("w", "k", "v", "r", "g")
 # top-level leaves read in float32 whatever the compute dtype
@@ -72,22 +73,46 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"
     }
 
 
+def _bsd(x, last=None):
+    """A (B, S, n) product output constrained to batch x ``last`` shards."""
+    return shard(x, "batch", None, last)
+
+
 def _ddlerp(p, x, sx):
     """Finch data-dependent token-shift. x, sx: (B,S,d)."""
     dx = sx - x
     base = x + dx * p["mu_base"]
-    low = torch.tanh(base @ p["mix_w1"])                     # (B,S,5*ml)
+    # each product's output is held batch-sharded, its gradient too: the
+    # token shift's slices leave gradients sharded over the sequence
+    # otherwise, which the weight gradients' flattening cannot carry
+    low = torch.tanh(_bsd(base @ p["mix_w1"]))             # (B,S,5*ml)
     B_, S_, _ = low.shape
-    low = low.reshape(B_, S_, 5, -1)
+    low = reshape(low, B_, S_, 5, -1)
     offs = torch.einsum("bsfm,fmd->bsfd", low, p["mix_w2"])  # (B,S,5,d)
     mixed = x[:, :, None] + dx[:, :, None] * (p["mu"][None, None] + offs)
+    # batch-sharded like the block's input: the products that take each
+    # mix flatten (batch, sequence), which a sequence shard cannot carry
+    mixed = shard(mixed, "batch", None, None, "embed")
     return {k: mixed[:, :, i] for i, k in enumerate(MIX_KEYS)}
 
 
 def _decay(p, xw):
     return torch.exp(-torch.exp(
-        (p["w0"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
+        (p["w0"] + _bsd(torch.tanh(_bsd(xw @ p["decay_a"])) @ p["decay_b"])
          ).to(torch.float32)))
+
+
+def _wkv(r, k, v, w, u, Sst):
+    """The WKV recurrence over time: r, k, v, w (B,S,H,hd), u (H,hd), the
+    state Sst (B,H,hd,hd). Returns (out (B,S,H,hd) float32, last state)."""
+    f32 = torch.float32
+    outs = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].to(f32), v[:, t].to(f32))
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].to(f32),
+                                 Sst + u[None, :, :, None] * kv))
+        Sst = w[:, t, ..., None] * Sst + kv
+    return torch.stack(outs, dim=1), Sst
 
 
 def _time_mix(p, x, cfg, state):
@@ -95,27 +120,22 @@ def _time_mix(p, x, cfg, state):
     B, S, d = x.shape
     rw = cfg.rwkv
     H, hd = d // rw.head_dim, rw.head_dim
-    f32 = torch.float32
     sx = torch.cat([state["sx"][:, None], x[:, :-1]], dim=1)
     m = _ddlerp(p, x, sx)
-    r = (m["r"] @ p["wr"]).reshape(B, S, H, hd)
-    k = (m["k"] @ p["wk"]).reshape(B, S, H, hd)
-    v = (m["v"] @ p["wv"]).reshape(B, S, H, hd)
-    g = F.silu(m["g"] @ p["wg"])
-    w = _decay(p, m["w"]).reshape(B, S, H, hd)               # f32 in (0,1)
-    u = p["u"]
-
-    Sst = state["S"]
-    outs = []
-    for t in range(S):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].to(f32), v[:, t].to(f32))
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].to(f32),
-                                 Sst + u[None, :, :, None] * kv))
-        Sst = w[:, t, ..., None] * Sst + kv
-    y = torch.stack(outs, dim=1).reshape(B, S, d).to(x.dtype)
+    r = reshape(_bsd(m["r"] @ p["wr"], "heads"), B, S, H, hd)
+    k = reshape(_bsd(m["k"] @ p["wk"], "heads"), B, S, H, hd)
+    v = reshape(_bsd(m["v"] @ p["wv"], "heads"), B, S, H, hd)
+    g = F.silu(_bsd(m["g"] @ p["wg"], "heads"))
+    w = reshape(_decay(p, m["w"]), B, S, H, hd)              # f32 in (0,1)
+    heads = ("batch", None, "heads", None)
+    y, Sst = per_rank(_wkv, (r, k, v, w, p["u"], state["S"]),
+                      (heads,) * 4 + (("heads", None),
+                                      ("batch", "heads", None, None)),
+                      like=(0, 5), host=True)
+    y = reshape(y, B, S, d).to(x.dtype)
     # per-head group norm
-    y = rmsnorm(y.reshape(B, S, H, hd),
-                p["ln_x"].reshape(H, hd), cfg.norm_eps).reshape(B, S, d)
+    y = reshape(rmsnorm(reshape(y, B, S, H, hd),
+                        p["ln_x"].reshape(H, hd), cfg.norm_eps), B, S, d)
     y = (y * g) @ p["wo"]
     return y, {"sx": x[:, -1], "S": Sst}
 
@@ -125,9 +145,10 @@ def _channel_mix(p, x, state, act_tau=None):
     dx = sx - x
     xk = act_clip(x + dx * p["cm_mu_k"], act_tau)
     xr = x + dx * p["cm_mu_r"]
-    kk = torch.relu(xk @ p["cm_wk"]).square()
+    kk = torch.relu(_bsd(xk @ p["cm_wk"], "ff")).square()
     kk = shard(kk, "batch", None, "ff")
-    out = torch.sigmoid(xr @ p["cm_wr"]) * (act_clip(kk, act_tau) @ p["cm_wv"])
+    out = torch.sigmoid(_bsd(xr @ p["cm_wr"])) * \
+        _bsd(act_clip(kk, act_tau) @ p["cm_wv"])
     return out, {"sx": x[:, -1]}
 
 
@@ -162,13 +183,14 @@ def forward(cfg: ModelConfig, params, tokens, *, state=None, sparsity=None,
         p = _cast(p, dt)
         f_tau = taus.get("ffn") if taus else None
         a_tau = taus.get("attn") if taus else None
+        h = _residual(h)
         x = rmsnorm(h, p["ln1"], cfg.norm_eps)
         x = act_clip(x, a_tau)
         y, att_st = _time_mix(p, x, cfg, {"sx": att_sx, "S": S_i})
-        h = h + y
+        h = _residual(h + y)
         x = rmsnorm(h, p["ln2"], cfg.norm_eps)
         y, ffn_st = _channel_mix(p, x, {"sx": ffn_sx}, f_tau)
-        return h + y, att_st["sx"], att_st["S"], ffn_st["sx"]
+        return _residual(h + y), att_st["sx"], att_st["S"], ffn_st["sx"]
 
     block = remat_fn(block, "full" if remat else None)
     att_sx, ffn_sx, S_all = [], [], []

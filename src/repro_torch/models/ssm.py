@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.ctx import shard
+from repro_torch.distributed.ctx import per_rank, reshape, shard
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (act_clip, dense_init, dtype_of,
                                        embed_init, remat_fn, rmsnorm,
@@ -74,6 +74,19 @@ def _causal_conv(x, w, b, state=None):
     return F.silu(out), xp[:, -(K - 1):]                     # new conv state
 
 
+def _scan(a, dx, Bc, Cc, Hst):
+    """The selective-state recurrence over time: a (B,S,H), dx (B,S,H,hd),
+    Bc, Cc (B,S,N), the state Hst (B,H,hd,N). Returns (y (B,S,H,hd), last
+    state), float32."""
+    f32 = torch.float32
+    ys = []
+    for t in range(a.shape[1]):
+        Hst = a[:, t, :, None, None] * Hst + \
+            torch.einsum("bhd,bn->bhdn", dx[:, t], Bc[:, t].to(f32))
+        ys.append(torch.einsum("bhdn,bn->bhd", Hst, Cc[:, t].to(f32)))
+    return torch.stack(ys, dim=1), Hst
+
+
 def mamba_block(p, x, cfg: ModelConfig, state=None, act_tau=None):
     """x: (B,S,d). state: {'conv': (B,K-1,C), 'ssm': (B,H,hd,N)} or None.
     Returns (out, new_state)."""
@@ -81,26 +94,27 @@ def mamba_block(p, x, cfg: ModelConfig, state=None, act_tau=None):
     d_in, H, hd, N, K = _dims(cfg)
     f32 = torch.float32
     x = act_clip(x, act_tau)
-    zxbcdt = x @ p["in_proj"]
+    # batch-sharded, its gradient too (the causal convolution's slices
+    # leave it sharded over the sequence otherwise)
+    zxbcdt = shard(x @ p["in_proj"], "batch", None, None)
     z, xbc, dt = zxbcdt.split([d_in, d_in + 2 * N, H], dim=-1)
     conv_state = state["conv"] if state else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, Bc, Cc = xbc.split([d_in, N, N], dim=-1)
-    xs = xs.reshape(B, S, H, hd)
+    xs = reshape(xs, B, S, H, hd)
     dt = F.softplus(dt.to(f32) + p["dt_bias"])                     # (B,S,H)
     a = torch.exp(-dt * torch.exp(p["A_log"]))                      # (B,S,H)
     dx = dt[..., None] * xs.to(f32)                                 # (B,S,H,hd)
 
     Hst = state["ssm"] if state else torch.zeros((B, H, hd, N), dtype=f32,
                                                  device=x.device)
-    ys = []
-    for t in range(S):
-        Hst = a[:, t, :, None, None] * Hst + \
-            torch.einsum("bhd,bn->bhdn", dx[:, t], Bc[:, t].to(f32))
-        ys.append(torch.einsum("bhdn,bn->bhd", Hst, Cc[:, t].to(f32)))
-    y = torch.stack(ys, dim=1)                                      # (B,S,H,hd)
+    bsn = ("batch", None, None)
+    y, Hst = per_rank(_scan, (a, dx, Bc, Cc, Hst),
+                      (("batch", None, "heads"), ("batch", None, "heads", None),
+                       bsn, bsn, ("batch", "heads", None, None)), like=(1, 4),
+                      host=True)
     y = y + p["D"][:, None] * xs.to(f32)
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = reshape(y, B, S, d_in).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
     y = shard(y, "batch", None, "ff")
     out = y @ p["out_proj"]
@@ -149,7 +163,8 @@ def _shared_attn(cfg, params, h, h0, rot, k_buf=None, v_buf=None,
     right-padded — the cache for this call site."""
     dt = h.dtype
     p = tfm._cast(take_layer(params["shared"], 0), dt)
-    z = torch.cat([h, h0], dim=-1) @ params["shared_proj"].to(dt)
+    z = tfm._residual(torch.cat([h, h0], dim=-1) @
+                      params["shared_proj"].to(dt))
     x = rmsnorm(z, p["ln1"], cfg.norm_eps)
     kv = None
     if k_buf is None:
@@ -160,9 +175,9 @@ def _shared_attn(cfg, params, h, h0, rot, k_buf=None, v_buf=None,
                   tfm._to_cache(vv, return_kv_eff))
     else:
         o = tfm._gqa_decode_attn(p["attn"], x, cfg, k_buf, v_buf, pos, rot)
-    x2 = rmsnorm(z + o, p["ln2"], cfg.norm_eps)
+    x2 = rmsnorm(tfm._residual(z + o), p["ln2"], cfg.norm_eps)
     y, _ = tfm.ffn_block(p["ffn"], x2, cfg)
-    return h + z + o + y, kv
+    return tfm._residual(h + z + o + y), kv
 
 
 def forward(cfg: ModelConfig, params, tokens, *, sparsity=None, remat=None,
@@ -185,7 +200,7 @@ def forward(cfg: ModelConfig, params, tokens, *, sparsity=None, remat=None,
         p = tfm._cast(p, dt)
         y, st = mamba_block(p, rmsnorm(h, p["ln"], cfg.norm_eps), cfg,
                             act_tau=f_tau)
-        return h + y, st["conv"], st["ssm"]
+        return tfm._residual(h + y), st["conv"], st["ssm"]
 
     mamba_step = remat_fn(mamba_step, "full" if remat else None)
     layers = unstack_layers(params["mamba"])

@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx as shard_ctx
 from repro_torch.distributed.ctx import shard
+from repro_torch.distributed.sharding import cache_spec, distribute
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import blockwise_attention, decode_attention
 from repro_torch.models.common import (act_clip, activation, dense_init,
@@ -53,7 +55,16 @@ def _mm(a, b):
 
 
 def _embed(params, tokens, dt):
-    """Rows of the embedding in the compute dtype (gathered, then cast)."""
+    """Rows of the embedding in the compute dtype (gathered, then cast).
+    Tokens split over ranks take ``F.embedding`` on a table whose
+    vocabulary is whole (the indexing rules of torch 2.11 refuse split
+    tokens in the forward and backward, and DTensor's masked sum over a
+    split vocabulary fails on split tokens); its backward sums the rows
+    in another order than the indexing's on the card, so tokens held
+    whole keep the indexing."""
+    if shard_ctx.is_sharded(tokens) and any(
+            p.is_shard() for p in tokens.placements):
+        return F.embedding(tokens, shard_ctx.whole(params["embed"], 0)).to(dt)
     return params["embed"][tokens].to(dt)
 
 
@@ -197,9 +208,9 @@ def _gqa_qkv(p, h, cfg: ModelConfig, rot):
     v = h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = shard_ctx.reshape(q, B, S, H, hd)
+    k = shard_ctx.reshape(k, B, S, KV, hd)
+    v = shard_ctx.reshape(v, B, S, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -213,16 +224,21 @@ def _mla_qkv(p, h, cfg: ModelConfig, rot):
     m = cfg.mla
     B, S, _ = h.shape
     H = cfg.num_heads
-    qa = rmsnorm(h @ p["wq_a"], p["q_norm_a"], cfg.norm_eps)
-    q = (qa @ p["wq_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    # the low-rank products held batch-sharded, their gradients too (a
+    # sequence-sharded gradient cannot be flattened for the weight's)
+    qa = rmsnorm(shard(h @ p["wq_a"], "batch", None, None), p["q_norm_a"],
+                 cfg.norm_eps)
+    q = shard_ctx.reshape(qa @ p["wq_b"], B, S, H,
+                          m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = rotate(q_rope, *rot)
 
-    kv_a = h @ p["wkv_a"]                                 # (B,S,kvr+rd)
+    kv_a = shard(h @ p["wkv_a"], "batch", None, None)     # (B,S,kvr+rd)
     ckv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     ckv = rmsnorm(ckv, p["kv_norm_a"], cfg.norm_eps)
     k_rope = rotate(k_rope[:, :, None, :], *rot)          # shared head
-    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    kv = shard_ctx.reshape(ckv @ p["wkv_b"], B, S, H,
+                           m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -237,28 +253,28 @@ def attention_block(p, h, cfg: ModelConfig, rot, *, causal=True,
         q, k, v, _, _ = _mla_qkv(p, h, cfg, rot)
         o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window,
                                 impl=attn_impl)
-        o = shard(o.reshape(B, S, -1), "batch", None, "heads")
+        o = shard(shard_ctx.reshape(o, B, S, -1), "batch", None, "heads")
         return o @ p["wo"]
     if kv_override is not None:                          # cross attention
         xk, xv = kv_override
         H, hd = cfg.num_heads, cfg.resolved_head_dim
-        q = (h @ p["wq"]).reshape(B, S, H, hd)
+        q = shard_ctx.reshape(h @ p["wq"], B, S, H, hd)
         o = blockwise_attention(q, xk, xv, causal=False)
-        return o.reshape(B, S, -1) @ p["wo"]
+        return shard_ctx.reshape(o, B, S, -1) @ p["wo"]
     q, k, v = _gqa_qkv(p, h, cfg, rot)
     q = shard(q, "batch", None, "heads", None)
     o = blockwise_attention(q, k, v, causal=causal, window=cfg.attn_window,
                             impl=attn_impl)
-    o = shard(o.reshape(B, S, -1), "batch", None, "heads")
+    o = shard(shard_ctx.reshape(o, B, S, -1), "batch", None, "heads")
     return o @ p["wo"]
 
 
 def ffn_block(p, h, cfg: ModelConfig, act_tau=None):
     B, S, d = h.shape
     if cfg.moe is not None:
-        y, aux = moe_lib.moe_ffn(h.reshape(B * S, d), p, cfg.moe, cfg.act,
-                                 act_tau)
-        return y.reshape(B, S, d), aux
+        y, aux = moe_lib.moe_ffn(shard_ctx.reshape(h, B * S, d), p, cfg.moe,
+                                 cfg.act, act_tau)
+        return shard_ctx.reshape(y, B, S, d), aux
     act = activation(cfg.act)
     h_in = act_clip(h, act_tau)
     g = act(h_in @ p["w_gate"]) * (h_in @ p["w_up"])
@@ -276,18 +292,26 @@ def _block(cfg: ModelConfig, p, h, rot, taus=None, *, causal,
     p = _cast(p, h.dtype)
     a_tau = taus.get("attn") if taus else None
     f_tau = taus.get("ffn") if taus else None
-    h = shard(h, "batch", None, "embed")
+    h = _residual(h)
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     x = act_clip(x, a_tau)
-    h = h + attention_block(p["attn"], x, cfg, rot, causal=causal,
-                            attn_impl=attn_impl)
+    h = _residual(h + attention_block(p["attn"], x, cfg, rot, causal=causal,
+                                      attn_impl=attn_impl))
     if enc_kv is not None:
         x = rmsnorm(h, p["ln_cross"], cfg.norm_eps)
-        h = h + attention_block(p["cross"], x, cfg, rot, causal=False,
-                                kv_override=enc_kv)
+        h = _residual(h + attention_block(p["cross"], x, cfg, rot,
+                                          causal=False, kv_override=enc_kv))
     x = rmsnorm(h, p["ln2"], cfg.norm_eps)
     y, aux = ffn_block(p["ffn"], x, cfg, f_tau)
-    return h + y, aux
+    return _residual(h + y), aux
+
+
+def _residual(h):
+    """The residual stream in the block entry's layout (the reference's
+    constraint there), kept after each sublayer's sum as GSPMD carries that
+    constraint back to the sums; otherwise DTensor may leave a sum sharded
+    over the sequence, whose gradient later products cannot flatten."""
+    return shard(h, "batch", None, "embed")
 
 
 def _run_blocks(cfg: ModelConfig, h, stacked, L, rot, sparsity=None, *,
@@ -345,8 +369,8 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, frames=None,
         def layer(p, h, taus):
             # the cross K/V come from the layer's stored (float32) weights,
             # so they are float32 whatever the compute dtype
-            xk = _mm(enc, p["cross"]["wk"]).reshape(B, F_, KV, hd)
-            xv = _mm(enc, p["cross"]["wv"]).reshape(B, F_, KV, hd)
+            xk = shard_ctx.reshape(_mm(enc, p["cross"]["wk"]), B, F_, KV, hd)
+            xv = shard_ctx.reshape(_mm(enc, p["cross"]["wv"]), B, F_, KV, hd)
             return _block(cfg, p, h, rot, taus, causal=True,
                           attn_impl=attn_impl, enc_kv=(xk, xv))
 
@@ -384,7 +408,10 @@ def lm_loss(cfg: ModelConfig, params, batch, *, sparsity=None,
 
     if cfg.mtp_depth:                            # predict token t+2 from h_t
         dt = h.dtype
-        nxt_emb = _embed(params, torch.roll(tokens, -1, dims=1), dt)
+        # roll(tokens, -1) as two slices, which DTensor shards too (torch
+        # 2.11 has no sharding rule for roll)
+        nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        nxt_emb = _embed(params, nxt, dt)
         z = torch.cat([rmsnorm(h, params["mtp"]["norm"], cfg.norm_eps),
                        nxt_emb], dim=-1) @ params["mtp"]["proj"].to(dt)
         positions = torch.arange(z.shape[1], device=z.device)
@@ -433,7 +460,15 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda") -> Params:
 
 def _cache_write(buf, new, at):
     """buf (B,S,...), new (B,1,...): write row ``at[b] < S`` of sequence b
-    in place (the B rows only)."""
+    in place (the B rows only). A sharded cache (a ``DTensor``, whose
+    row write DTensor cannot keep in place) is rewritten whole through a
+    one-hot select, the reference's baseline write."""
+    if shard_ctx.is_sharded(buf):
+        B, S = buf.shape[:2]
+        hit = torch.arange(S, device=buf.device)[None, :] == at[:, None]
+        hit = hit.reshape((B, S) + (1,) * (buf.ndim - 2))
+        buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
+        return
     buf[torch.arange(buf.shape[0], device=buf.device), at] = \
         new[:, 0].to(buf.dtype)
 
@@ -462,12 +497,12 @@ def decode_step(cfg: ModelConfig, params, cache, token):
         h = h + o
         if cfg.is_encoder_decoder:
             x = rmsnorm(h, p["ln_cross"], cfg.norm_eps)
-            q = (x @ p["cross"]["wq"]).reshape(B, 1, cfg.num_heads,
-                                               cfg.resolved_head_dim)
+            q = shard_ctx.reshape(x @ p["cross"]["wq"], B, 1, cfg.num_heads,
+                                  cfg.resolved_head_dim)
             xo = decode_attention(q, cache["xk"][i], cache["xv"][i],
                                   torch.full((B,), cfg.num_frames,
                                              device=h.device))
-            h = h + xo.reshape(B, 1, -1) @ p["cross"]["wo"]
+            h = h + shard_ctx.reshape(xo, B, 1, -1) @ p["cross"]["wo"]
         x = rmsnorm(h, p["ln2"], cfg.norm_eps)
         y, _ = ffn_block(p["ffn"], x, cfg)
         h = h + y
@@ -490,7 +525,7 @@ def _gqa_decode_attn(p, x, cfg, k_buf, v_buf, pos, rot):
     _cache_write(v_buf, v, slot)
     eff_len = torch.clamp(pos + 1, max=S)
     o = decode_attention(q, k_buf, v_buf, eff_len)
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    return shard_ctx.reshape(o, B, 1, H * hd) @ p["wo"]
 
 
 def _mla_decode_attn(p, x, cfg, ckv_buf, krope_buf, pos, rot):
@@ -502,7 +537,8 @@ def _mla_decode_attn(p, x, cfg, ckv_buf, krope_buf, pos, rot):
     H = cfg.num_heads
     f32 = torch.float32
     qa = rmsnorm(x @ p["wq_a"], p["q_norm_a"], cfg.norm_eps)
-    q = (qa @ p["wq_b"]).reshape(B, 1, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = shard_ctx.reshape(qa @ p["wq_b"], B, 1, H,
+                          m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = rotate(q_rope, *rot)
 
@@ -520,7 +556,8 @@ def _mla_decode_attn(p, x, cfg, ckv_buf, krope_buf, pos, rot):
     _cache_write(krope_buf, torch.where(inside, k_rope,
                                         krope_buf[rows, at][:, None]), at)
 
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    wkv_b = shard_ctx.reshape(p["wkv_b"], m.kv_lora_rank, H,
+                              m.qk_nope_head_dim + m.v_head_dim)
     wk_b, wv_b = wkv_b[..., :m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
     # absorb: q_eff = q_nope @ wk_b^T  -> latent space
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].to(f32), wk_b.to(f32))
@@ -533,7 +570,7 @@ def _mla_decode_attn(p, x, cfg, ckv_buf, krope_buf, pos, rot):
     pr = torch.softmax(s, dim=-1)
     lat = torch.einsum("bhs,bsr->bhr", pr, ckv_buf.to(f32))
     o = torch.einsum("bhr,rhv->bhv", lat, wv_b.to(f32))       # (B,H,v)
-    o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    o = shard_ctx.reshape(o, B, 1, H * m.v_head_dim).to(x.dtype)
     return o @ p["wo"]
 
 
@@ -560,6 +597,9 @@ def prefill(cfg: ModelConfig, params, tokens, S_max: int, *, frames=None,
     dt = dtype_of(cfg.dtype)
     dev = tokens.device
     cache = init_cache(cfg, B, S_max, device=dev)
+    if shard_ctx.is_sharded(tokens):     # a sharded prompt fills a sharded cache
+        mesh = tokens.device_mesh
+        cache = distribute(cache, mesh, cache_spec(mesh, cache))
     h = _embed(params, tokens, dt)
     positions = torch.arange(S, device=dev)
     rot = rope(cfg, positions)
@@ -580,6 +620,7 @@ def prefill(cfg: ModelConfig, params, tokens, S_max: int, *, frames=None,
         taus = _layer_taus(sparsity, i)
         a_tau = taus.get("attn") if taus else None
         f_tau = taus.get("ffn") if taus else None
+        h = _residual(h)
         x = rmsnorm(h, p["ln1"], cfg.norm_eps)
         x = act_clip(x, a_tau)
         if cfg.mla is not None:
@@ -593,18 +634,19 @@ def prefill(cfg: ModelConfig, params, tokens, S_max: int, *, frames=None,
                                     window=cfg.attn_window, impl=attn_impl)
             cache["k"][i] = _to_cache(k, eff)
             cache["v"][i] = _to_cache(v, eff)
-        h = h + o.reshape(B, S, -1) @ p["attn"]["wo"]
+        h = _residual(h + shard_ctx.reshape(o, B, S, -1) @ p["attn"]["wo"])
         if cfg.is_encoder_decoder:
             x = rmsnorm(h, p["ln_cross"], cfg.norm_eps)
-            xk = (enc @ p["cross"]["wk"]).reshape(B, enc.shape[1], KV, hd)
-            xv = (enc @ p["cross"]["wv"]).reshape(B, enc.shape[1], KV, hd)
-            h = h + attention_block(p["cross"], x, cfg, rot,
-                                    causal=False, kv_override=(xk, xv))
+            xk = shard_ctx.reshape(enc @ p["cross"]["wk"], B, enc.shape[1], KV, hd)
+            xv = shard_ctx.reshape(enc @ p["cross"]["wv"], B, enc.shape[1], KV, hd)
+            h = _residual(h + attention_block(p["cross"], x, cfg, rot,
+                                              causal=False,
+                                              kv_override=(xk, xv)))
             cache["xk"][i] = xk
             cache["xv"][i] = xv
         x = rmsnorm(h, p["ln2"], cfg.norm_eps)
         y, _ = ffn_block(p["ffn"], x, cfg, f_tau)
-        h = h + y
+        h = _residual(h + y)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_lens is None:
         cache["pos"].fill_(S)

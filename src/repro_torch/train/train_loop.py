@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ctx as shard_ctx
 from repro_torch.distributed.collectives import ef_quantize
 from repro_torch.models.common import dtype_of
 from repro_torch.train import optimizer as opt_lib
@@ -37,9 +38,17 @@ class TrainConfig:
     cast_params_bf16: bool = False     # cast f32 masters to bf16 before use
 
 
-def _microbatch(batch, accum: int, i: int):
-    return tree_map(lambda x: x.reshape((accum, -1) + tuple(x.shape[1:]))[i],
-                batch)
+def _microbatches(batch, accum: int):
+    """The ``accum`` microbatches of a batch: microbatch i is rows
+    [i B / accum, (i + 1) B / accum), as in the reference. A sharded batch
+    whose shards the split cannot keep is gathered once for all of them,
+    and each microbatch is then laid out over the batch axes again (a cut
+    of the rows each rank holds, no collective)."""
+    split = tree_map(lambda x: shard_ctx.reshape(
+        x, accum, -1, *x.shape[1:]), batch)
+    return [tree_map(lambda x: shard_ctx.shard(
+        x[i], "batch", *([None] * (x.ndim - 2))), split)
+        for i in range(accum)]
 
 
 def _replicated(t: torch.Tensor) -> torch.Tensor:
@@ -93,9 +102,8 @@ def compute_grads(loss_fn: Callable, tcfg: TrainConfig, params, batch,
                                                params, batch)
         return grads, loss, metrics
     gdt = dtype_of(tcfg.grad_dtype)
-    for i in range(tcfg.accum):
-        loss, metrics, g = _value_and_grad(loss_fn, tcfg, sparsity, params,
-                                           _microbatch(batch, tcfg.accum, i))
+    for i, mb in enumerate(_microbatches(batch, tcfg.accum)):
+        loss, metrics, g = _value_and_grad(loss_fn, tcfg, sparsity, params, mb)
         if i == 0:
             # 0 + g is g: the first microbatch's gradients start the sums
             acc, loss_sum = tree_map(lambda a: a.to(gdt), g), loss

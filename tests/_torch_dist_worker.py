@@ -11,7 +11,10 @@ Reads ``OUT_DIR/inputs.npz`` (written by the test) and writes one
   ``elastic_remesh``;
 * ranks 4-5 (float32 moments) and 6-7 (int8 moments): a reduced Qwen3 train
   step with its state sharded over (data 2, model 1), beside the unsharded
-  step from the same state; ranks 4-5 also the same for reduced Mixtral.
+  step from the same state; ranks 4-5 also the same for reduced Mixtral;
+* ranks 0-3: the same at world 4 where the sharded step needs a reshard:
+  Qwen3 with a 512 vocabulary over (data 1, model 4), Qwen3 over (data 4,
+  model 1), Mixtral over (data 2, model 2).
 
 Imports torch and the port only.
 """
@@ -151,7 +154,8 @@ def remesh(rank, inp, out, mesh4, mesh2, tmp):
                remesh_bad_placements=np.array(bad_pl))
 
 
-def train(rank, inp, out, mesh, state_dtype, arch="qwen3-0.6b", key="train"):
+def train(rank, inp, out, mesh, state_dtype, arch="qwen3-0.6b", key="train",
+          **cfg_kw):
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.distributed.ctx import use_sharding
@@ -164,7 +168,7 @@ def train(rank, inp, out, mesh, state_dtype, arch="qwen3-0.6b", key="train"):
     if mesh.get_coordinate() is None:
         return
     cfg = dataclasses.replace(reduce_config(get_config(arch)),
-                              dtype="float32")
+                              dtype="float32", **cfg_kw)
     api = build_model(cfg)
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1,
                                      total_steps=10, state_dtype=state_dtype),
@@ -207,6 +211,10 @@ def worker(rank, tmp):
                           mesh_dim_names=("data", "model"))
     mesh_i8 = DeviceMesh("cpu", torch.arange(6, 8).reshape(2, 1),
                          mesh_dim_names=("data", "model"))
+    mesh_m4 = DeviceMesh("cpu", torch.arange(4).reshape(1, 4),
+                         mesh_dim_names=("data", "model"))
+    mesh_d4 = DeviceMesh("cpu", torch.arange(4).reshape(4, 1),
+                         mesh_dim_names=("data", "model"))
     out = {}
     psum(rank, inp, out)
     pipeline(rank, inp, out)
@@ -215,6 +223,13 @@ def worker(rank, tmp):
     train(rank, inp, out, mesh_f32, "float32")
     train(rank, inp, out, mesh_i8, "int8")
     train(rank, inp, out, mesh_f32, "float32", "mixtral-8x7b", "moe_train")
+    # the sites the dry run repaired: 2 KV heads and a 512 vocabulary over
+    # 4 model ranks; 2 microbatches of 4 rows over 4 data ranks; the MoE
+    # token reshape with its gradient over data and model
+    train(rank, inp, out, mesh_m4, "float32", key="heads_train",
+          vocab_size=512)
+    train(rank, inp, out, mesh_d4, "float32", key="split_train")
+    train(rank, inp, out, mesh4, "float32", "mixtral-8x7b", "moe2d_train")
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     dist.barrier()
     dist.destroy_process_group()

@@ -8,8 +8,9 @@ the port into the same directory by ``out_dir``). ``lm_dse``'s >= 10x
 speed gate reads the host's clock, which a loaded test machine can miss:
 its sections are compared here and the gate runs on fixed rows (the card's
 ``chip_smoke.py`` runs it for real). ``roofline`` reads one cell that the
-port's dry run lays out on the ``fake`` backend (in a process of its own):
-its row is the record, with the collective term unknown."""
+port's dry run runs on the ``fake`` backend (in a process of its own, cut
+to one layer): its row is the record, collective term and collectives by
+op included."""
 import json
 import os
 import subprocess
@@ -103,7 +104,8 @@ def test_lm_dse_bench_run_writes_its_sections_and_gates_at_10x(
 DRYRUN_CELL = textwrap.dedent("""
     import json, sys
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell("qwen3-0.6b", "train_4k", False, verbose=False)
+    rec = dryrun.run_cell("qwen3-0.6b", "train_4k", False, verbose=False,
+                          layers=1)
     with open(sys.argv[1], "w") as f:
         json.dump({rec["key"]: rec}, f)
 """)
@@ -119,7 +121,7 @@ def test_roofline_report_rows_are_the_dry_run_records(tmp_path, capsys):
     res = load(path)
     (key, rec), = res.items()
     assert rec["status"] == "ok" and rec["mesh"] == "pod16x16"
-    assert rec["collective_s"] is None
+    assert rec["ran"] and rec["collective_s"] > 0
     # a cell of the other mesh and one that did not lay out are not rows
     res["x|train_4k|pod2x16x16"] = dict(rec, mesh="pod2x16x16")
     res["y|train_4k|pod16x16"] = {"key": "y", "status": "skipped"}
@@ -135,7 +137,12 @@ def test_roofline_report_rows_are_the_dry_run_records(tmp_path, capsys):
     assert cols[:2] == ["qwen3-0.6b", "train_4k"]
     assert float(cols[2]) == pytest.approx(rec["compute_s"], rel=1e-3)
     assert float(cols[3]) == pytest.approx(rec["memory_s"], rel=1e-3)
-    assert cols[4] == "—" and cols[5] == rec["dominant"]
+    assert float(cols[4]) == pytest.approx(rec["collective_s"], rel=1e-3)
+    assert cols[5] == rec["dominant"]
+    ops = printed[printed.index(line) + 1]
+    assert ops.startswith("  collectives: ")
+    for op, (c, b) in rec["coll_by_op"].items():
+        assert f"{op} {c} x {b:.3e} B" in ops
     assert "roofline.cells,0.0,n=1 mesh=pod16x16" in printed
     assert roofline_report.run(mesh="pod2x16x16", path=str(path),
                                device="cpu", out_dir=str(tmp_path)) == \

@@ -17,7 +17,11 @@ each test then reads its part of both results:
 * a reduced Qwen3 train step with its state sharded at world 2 (data 2),
   float32 and int8 moments, and a reduced Mixtral one with float32
   moments: loss within 1e-6 relative and parameters within 1e-5 of the
-  unsharded step.
+  unsharded step;
+* the same bars at world 4 for the sites where the sharded step must
+  reshard (the dry run's repairs): 2 KV heads and a 512 vocabulary over 4
+  model ranks, 2 microbatches of 4 rows over 4 data ranks, and the MoE
+  token reshape on a (data 2, model 2) mesh.
 """
 import os
 import subprocess
@@ -177,3 +181,19 @@ def test_sharded_moe_train_step_at_world_2_matches_unsharded(runs):
         assert abs(loss - ref) <= 1e-6 * abs(ref), (loss, ref)
         assert float(o["moe_train_param_err"]) <= 1e-5
         assert int(o["moe_train_sharded"]) >= 5
+
+
+@pytest.mark.parametrize("key", ["heads_train", "split_train",
+                                 "moe2d_train"])
+def test_sharded_step_at_world_4_matches_unsharded_where_it_reshards(runs,
+                                                                      key):
+    """Each site the dry run's sharded step repaired (an uneven head,
+    vocabulary or microbatch split, a gradient sharded twice) gives the
+    unsharded step's loss and parameters at world 4."""
+    _, _, ranks = runs
+    for r in range(4):
+        o = ranks[r]
+        loss, ref = float(o[f"{key}_loss"]), float(o[f"{key}_ref_loss"])
+        assert abs(loss - ref) <= 1e-6 * abs(ref), (r, loss, ref)
+        assert float(o[f"{key}_param_err"]) <= 1e-5, r
+        assert int(o[f"{key}_sharded"]) >= 5, r

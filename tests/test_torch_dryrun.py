@@ -1,11 +1,18 @@
 """repro_torch's dry run (``launch/dryrun.py``) on the ``fake`` backend.
 
 The port lays each cell out as ``DTensor``s on a 256- or 512-rank mesh in a
-process of its own (this process keeps no process group). Its bytes per rank
-of the train state must equal the arithmetic from the reference's
-``PartitionSpec``s on the same shapes (``jax.eval_shape``, no devices), and
-each ``CellTuning`` flag must reach its knob.
+process of its own (this process keeps no process group) and runs its step.
+Its bytes per rank of the train state must equal the arithmetic from the
+reference's ``PartitionSpec``s on the same shapes (``jax.eval_shape``, no
+devices), at full depth as laid out and at one layer (full width) as run;
+the step must have run and counted its collectives, and each
+``CellTuning`` flag must reach its knob.
+
+Each site the executed step had to repair for DTensor is held by a reduced
+config on a small ``fake`` mesh that reproduces its gap (8 KV heads over
+16 model ranks at full size become 2 over 4 here).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,11 +44,17 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.distributed.sharding import mesh_axes
     from repro_torch.launch import dryrun
 
-    out = {"cells": {}}
+    out = {"cells": {}, "full_bytes": {}}
     for arch in ("qwen3-0.6b", "deepseek-v3-671b"):
         for mp in (False, True):
-            rec = dryrun.run_cell(arch, "train_4k", mp, verbose=False)
+            rec = dryrun.run_cell(arch, "train_4k", mp, verbose=False,
+                                  layers=1)
             out["cells"][rec["key"]] = rec
+            # the full-depth state, laid out and not run
+            dryrun.fake_world(512 if mp else 256)
+            laid, _, _ = dryrun.lay_out_cell(arch, "train_4k", mp)
+            out["full_bytes"][rec["key"].rsplit("|", 1)[0]] = {
+                k: dryrun._local_bytes(v) for k, v in laid["parts"].items()}
 
     def flags(arch, shape, tuning):
         dryrun.fake_world(256)
@@ -89,15 +102,103 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
+# each repaired site: (arch, step, (data, model) mesh, config changes,
+# accum, tuning, global batch (0: the smoke shape's)); every mesh has 16
+# ranks, so that one fake process group serves them all
+SITES = {
+    # 8 microbatches of a batch over 8 data ranks: 4 does not divide by 8
+    "microbatch_split": ("qwen3-0.6b", "train", (8, 2), {}, 4, None, 8),
+    # 2 KV heads over 4 model ranks, in _gqa_qkv
+    "gqa_kv_heads": ("qwen3-0.6b", "prefill", (4, 4), {}, 1, None, 0),
+    # a plain prefill cache given DTensor rows
+    "prefill_cache": ("qwen3-0.6b", "prefill", (4, 4),
+                      {"num_kv_heads": 4}, 1, None, 0),
+    # the in-place row write of a sharded decode cache
+    "decode_cache_write": ("qwen3-0.6b", "decode", (4, 4),
+                           {"num_kv_heads": 4}, 1, None, 0),
+    # the label gather over a vocabulary sharded over 'model'
+    "vocab_gather": ("qwen3-0.6b", "train", (8, 2), {"vocab_size": 512}, 1,
+                     None, 8),
+    # the MoE token reshape, whose gradient comes back sharded twice
+    "moe_reshape_grad": ("mixtral-8x7b", "train", (4, 4),
+                         {"num_kv_heads": 4}, 1, None, 0),
+    # the expert-parallel dispatch (moe_shardmap), 4 experts over 4
+    "moe_shardmap": ("deepseek-v3-671b", "train", (4, 4), {}, 1,
+                     "moe_shardmap", 0),
+    # MLA's query and wkv_b splits: 4 heads over 8
+    "mla_heads": ("deepseek-v3-671b", "decode", (2, 8), {}, 1, None, 0),
+    # RWKV6's 5 token-shift mixes over 4, and its time-mix state
+    "rwkv_mixes": ("rwkv6-1.6b", "train", (4, 4), {}, 1, None, 0),
+    # Zamba2's selective scan and its state
+    "mamba_scan": ("zamba2-1.2b", "train", (4, 4), {}, 1, None, 0),
+    # Whisper's self- and cross-attention heads: 4 over 8
+    "whisper_heads": ("whisper-base", "prefill", (2, 8), {}, 1, None, 0),
+    # and its 12 frames over 8, an uneven shard moved between dimensions
+    "whisper_uneven_frames": ("whisper-base", "train", (2, 8), {}, 1, None,
+                              0),
+}
+
+SITES_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, sys
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import SMOKE_SHAPES, get_config, reduce_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_loop import TrainConfig
+
+    dryrun.fake_world(16)
+    out = {}
+    for name, (arch, kind, mesh_shape, kw, accum, tuning, B) in \
+            json.loads(sys.argv[1]).items():
+        cfg = dataclasses.replace(reduce_config(get_config(arch)), **kw)
+        shape = SMOKE_SHAPES[kind]
+        if B:
+            shape = dataclasses.replace(shape, global_batch=B)
+        mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                                mesh_dim_names=("data", "model"))
+        t = dryrun.CellTuning(**{tuning: True}) if tuning else None
+        try:
+            laid, _, _ = dryrun.lay_out(
+                cfg, shape, mesh, TrainConfig(accum=accum, remat="full"), t)
+            c = dryrun.run_step(laid)
+            out[name] = {"flops": c.flops, "coll": c.collective_bytes,
+                         "by_op": c.coll_by_op, "ops": c.n_ops,
+                         "sharded": sum(
+                             any(p.is_shard() for p in a.placements)
+                             for a in dryrun._arrays(laid["parts"]))}
+        except Exception as e:                             # noqa: BLE001
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+    print("RESULT " + json.dumps(out))
+""")
+
+
+def _run(log, script, *args):
+    """A subprocess writing to the file ``log`` (two at once would block
+    on full pipes)."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-c", script, *args],
+                                env=dict(os.environ, PYTHONPATH=SRC),
+                                stdout=f, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def _wait(proc, log):
+    proc.wait(timeout=600)
+    with open(log) as f:
+        out = f.read()
+    assert proc.returncode == 0, out[-6000:]
+    line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
 @pytest.fixture(scope="module")
 def result(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("dry") / "dryrun_torch.json")
-    r = subprocess.run([sys.executable, "-c", SCRIPT, out],
-                       env=dict(os.environ, PYTHONPATH=SRC),
-                       capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
-    res = json.loads(line[-1][len("RESULT "):])
+    tmp = tmp_path_factory.mktemp("dry")
+    out = str(tmp / "dryrun_torch.json")
+    logs = str(tmp / "cells.log"), str(tmp / "sites.log")
+    cells = _run(logs[0], SCRIPT, out)
+    sites = _run(logs[1], SITES_SCRIPT, json.dumps(SITES))
+    res = _wait(cells, logs[0])
+    res["sites"] = _wait(sites, logs[1])
     with open(out) as f:
         res["main_file"] = json.load(f)
     return res
@@ -129,7 +230,7 @@ def _ref_bytes_per_rank(tree, specs, sizes):
 @pytest.mark.parametrize("arch,mesh", CELLS)
 def test_state_bytes_per_rank_equal_the_reference_arithmetic(result, arch,
                                                              mesh):
-    rec = result["cells"][f"{arch}|train_4k|{mesh}"]
+    rec = result["cells"][f"{arch}|train_4k|{mesh}|L1"]
     assert rec["status"] == "ok", rec
     shape, axes = MESHES[mesh]
     duck = types.SimpleNamespace(axis_names=axes, devices=np.empty(shape))
@@ -137,17 +238,25 @@ def test_state_bytes_per_rank_equal_the_reference_arithmetic(result, arch,
     tcfg = JTrainConfig(
         opt=JOptConfig(state_dtype="bfloat16" if big else "float32"),
         accum=8, remat="full", grad_dtype="bfloat16" if big else "float32")
-    state = jtrain_state_shape(jbuild(jget(arch)).init, tcfg)
-    specs = jsh.param_specs(duck, state)
     sizes = dict(zip(axes, shape))
-    for part in ("params", "opt"):
-        assert rec["bytes_per_rank"][part] == _ref_bytes_per_rank(
-            state[part], specs[part], sizes), part
-    # the batch: (256, 4096) tokens over the data axes, int64 in the port
     dp = int(np.prod([sizes[a] for a in axes if a != "model"]))
-    assert rec["bytes_per_rank"]["batch"] == 256 // dp * 4096 * 8
+    # the full-depth state as laid out, and the one-layer state that ran
+    full = result["full_bytes"][f"{arch}|train_4k|{mesh}"]
+    for cfg, got in ((jget(arch), full),
+                     (dataclasses.replace(jget(arch), num_layers=1),
+                      rec["bytes_per_rank"])):
+        state = jtrain_state_shape(jbuild(cfg).init, tcfg)
+        specs = jsh.param_specs(duck, state)
+        for part in ("params", "opt"):
+            assert got[part] == _ref_bytes_per_rank(
+                state[part], specs[part], sizes), (cfg.num_layers, part)
+        # the batch: (256, 4096) tokens over the data axes, int64 in the port
+        assert got["batch"] == 256 // dp * 4096 * 8
     assert rec["arg_bytes"] == sum(rec["bytes_per_rank"].values())
-    assert rec["collective_s"] is None and rec["compute_s"] > 0
+    assert rec["ran"] and rec["collective_s"] > 0 and rec["compute_s"] > 0
+    assert rec["coll_bytes_per_device"] == sum(
+        b for _, b in rec["coll_by_op"].values())
+    assert rec["temp_bytes"] > 0 and rec["run_s"] >= 0
 
 
 def test_cell_tuning_flags_reach_their_knobs(result):
@@ -174,5 +283,19 @@ def test_cell_tuning_flags_reach_their_knobs(result):
 def test_main_writes_the_ports_own_results_file(result):
     assert result["default_out"] == "dryrun_torch.json"
     rec = result["main_file"]["qwen3-0.6b|decode_32k|pod16x16"]
-    assert rec["status"] == "ok"
+    assert rec["status"] == "ok" and rec["ran"]
     assert set(rec["bytes_per_rank"]) == {"params", "cache", "token"}
+    assert rec["collective_s"] > 0 and rec["flops_per_device"] > 0
+
+
+@pytest.mark.parametrize("site", sorted(SITES))
+def test_each_repaired_site_runs_sharded(result, site):
+    """The reduced config's step on a 16-rank fake mesh that reproduces the
+    site's gap runs to its end under the counter: flops and collectives
+    counted, the arguments laid out sharded."""
+    rec = result["sites"][site]
+    assert "error" not in rec, rec
+    assert rec["flops"] > 0 and rec["ops"] > 0 and rec["sharded"] > 0
+    assert rec["coll"] == sum(b for _, b in rec["by_op"].values()) > 0
+    if site == "microbatch_split":      # the batch is gathered for the split
+        assert rec["by_op"]["all-gather"][0] > 0

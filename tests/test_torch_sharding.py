@@ -11,6 +11,7 @@ reference's ``PartitionSpec`` entry for entry.
 """
 import dataclasses
 import functools
+import threading
 import types
 
 import jax
@@ -37,6 +38,7 @@ from repro_torch.distributed import ctx as tctx
 from repro_torch.distributed import pipeline as tpipe
 from repro_torch.distributed import sharding as tsh
 from repro_torch.models import build_model, input_specs
+from repro_torch.models.common import remat_fn
 from repro_torch.models.moe import _shard_map_dispatch
 from repro_torch.train.optimizer import OptConfig, Packed8
 from repro_torch.train.train_loop import TrainConfig, train_state_shape
@@ -182,6 +184,33 @@ def test_shard_is_the_identity_outside_a_context_and_on_plain_tensors():
     assert tctx.current() is None
 
 
+def test_context_is_per_thread_and_reaches_a_recomputation_elsewhere():
+    """Another thread does not see a thread's context; a checkpointed
+    block recomputed on another thread (autograd's device thread on the
+    card) sees the context its forward pass saw."""
+    seen = []
+
+    def block(x):
+        seen.append(tctx.current())
+        return torch.sin(x) * torch.cos(x)
+
+    run = remat_fn(block, "full")
+    x = torch.linspace(0.0, 1.0, 5, requires_grad=True)
+    with tctx.use_sharding(duck_mesh("pod16x16")) as c:
+        other = []
+        t = threading.Thread(target=lambda: other.append(tctx.current()))
+        t.start()
+        t.join()
+        loss = run(x).sum()
+    assert other == [None] and tctx.current() is None
+    t = threading.Thread(target=loss.backward)
+    t.start()
+    t.join()
+    assert seen == [c, c]
+    torch.testing.assert_close(x.grad, torch.cos(2 * x.detach()))
+    assert tctx.current() is None
+
+
 def test_placements_follow_the_spec_in_mesh_order():
     from torch.distributed.tensor import Replicate, Shard
     m = duck_mesh("pod2x16x16")
@@ -230,21 +259,32 @@ def test_analytic_traffic_equals_the_reference(arch, shape):
 
 
 def test_cell_report_keeps_the_reference_fields():
+    from repro_torch.analysis.op_costs import OpCosts
     assert [f.name for f in dataclasses.fields(troof.CellReport)] == \
         [f.name for f in dataclasses.fields(jroof.CellReport)]
+    costs = OpCosts(dot_flops=989e12 * 0.5, conv_flops=989e12 * 0.25,
+                    collective_bytes=900e9 * 3,
+                    coll_by_op={"all-gather": (2, 900e9),
+                                "all-reduce": (1, 1800e9)},
+                    peak_bytes=2 ** 30 + 2 ** 29, arg_bytes=2 ** 30)
     rep = troof.build_report(arch="a", shape="s", mesh_name="m", chips=256,
                              model_flops=989e12 * 256,
-                             traffic={"total": 3.35e12 * 512},
-                             arg_bytes=2 ** 30)
-    assert rep.compute_s == pytest.approx(1.0)
+                             traffic={"total": 3.35e12 * 512}, costs=costs)
+    assert rep.compute_s == pytest.approx(0.75)
     assert rep.memory_s == pytest.approx(2.0)
-    assert rep.collective_s is None and rep.coll_bytes_per_device is None
-    assert rep.dominant == "memory" and rep.bound_s == pytest.approx(2.0)
-    assert rep.roofline_frac == pytest.approx(0.5)
-    assert rep.hbm_total_gib == 1.0 and rep.fits_hbm
+    assert rep.collective_s == pytest.approx(3.0)
+    assert rep.coll_bytes_per_device == 900e9 * 3
+    assert rep.coll_by_op == {"all-gather": (2, int(900e9)),
+                              "all-reduce": (1, int(1800e9))}
+    assert rep.dominant == "collective" and rep.bound_s == pytest.approx(3.0)
+    assert rep.useful_ratio == pytest.approx(1 / 0.75)
+    assert rep.roofline_frac == pytest.approx(1 / 3)
+    assert (rep.arg_bytes, rep.temp_bytes) == (2 ** 30, 2 ** 29)
+    assert rep.hbm_total_gib == 1.5 and rep.fits_hbm
     assert not troof.build_report(
         arch="a", shape="s", mesh_name="m", chips=1, model_flops=1.0,
-        traffic={"total": 1.0}, arg_bytes=int(80e9) + 1).fits_hbm
+        traffic={"total": 1.0},
+        costs=OpCosts(peak_bytes=int(80e9) + 1)).fits_hbm
 
 
 @pytest.mark.parametrize("seed", range(4))
