@@ -27,6 +27,9 @@ from repro_torch.core.perf_model import (FPGAModel, HardwareModel, LayerCost,
                                    tile_quantize_sparsity)
 from repro_torch.core.tpe import TPE
 
+#: ``DSECache`` counters whose change an ``evaluate.dse`` span carries
+DSE_COUNTERS = ("hits", "warm_l1", "warm_l2", "cold_runs")
+
 
 @dataclass
 class Lambdas:
@@ -192,8 +195,14 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
         evaluate.lambdas = replace(lambdas)
 
     # observability (DESIGN.md §18). ``obs`` off keeps the literal seed
-    # loops below; on, the instrumented twins time each phase and snapshot
-    # counter deltas — reads only, never a float the search computes.
+    # serial loop below and skips the batched loop's clock reads; on, each
+    # phase is timed and counter deltas snapshotted — reads only, never a
+    # float the search computes. An installed tracer gets nested spans:
+    # ``search`` > ``round`` (a serial search: ``trial``) > ``propose``
+    # (the ask), ``evaluate`` (the evaluator's call), ``tell`` (the tell
+    # and scoring) and ``record`` (the recorder's write, in no phase); a
+    # batched round adds one ``trial`` span per member over the round's
+    # window. The default tracer's ``span`` is a shared no-op.
     tr = get_tracer()
     obs = tr.enabled or recorder is not None
     clk = tr.now if tr.enabled else time.perf_counter
@@ -204,36 +213,29 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
                 engine_dispatch_stats())
 
     def _observe(k, t0, t1, t2, t3, snap, first=True, round_size=1):
-        """Record trial ``result.trials[k]``. Batched rounds pass the whole
-        round's window to every member but attribute the shared phase time
-        and counter deltas to the FIRST trial only (zeros elsewhere), so
-        footer totals stay the sum of per-trial records."""
-        if tr.enabled:
-            tr.add_span("trial", t0, t3, depth=0, i=k)
-            if first:
-                tr.add_span("propose", t0, t1, depth=1)
-                tr.add_span("evaluate", t1, t2, depth=1)
-                tr.add_span("tell", t2, t3, depth=1)
-        if recorder is not None:
-            c1, e1 = _snap()
-            zero = {"propose": 0.0, "evaluate": 0.0, "tell": 0.0}
-            t = result.trials[k]
-            recorder.trial(
-                index=k, x=t.x, score=t.score, metrics=t.metrics,
-                cache={key: c1[key] - snap[0].get(key, 0) for key in c1}
-                if first else {},
-                engine={key: e1[key] - snap[1].get(key, 0) for key in e1}
-                if first else {},
-                phases={"propose": t1 - t0, "evaluate": t2 - t1,
-                        "tell": t3 - t2} if first else zero,
-                round_size=round_size)
+        """Write trial ``result.trials[k]`` to the recorder. Batched rounds
+        pass the whole round's window to every member but attribute the
+        shared phase time and counter deltas to the FIRST trial only
+        (zeros elsewhere), so footer totals stay the sum of per-trial
+        records."""
+        if recorder is None:
+            return
+        c1, e1 = _snap()
+        zero = {"propose": 0.0, "evaluate": 0.0, "tell": 0.0}
+        t = result.trials[k]
+        recorder.trial(
+            index=k, x=t.x, score=t.score, metrics=t.metrics,
+            cache={key: c1[key] - snap[0].get(key, 0) for key in c1}
+            if first else {},
+            engine={key: e1[key] - snap[1].get(key, 0) for key in e1}
+            if first else {},
+            phases={"propose": t1 - t0, "evaluate": t2 - t1,
+                    "tell": t3 - t2} if first else zero,
+            round_size=round_size)
 
     def _finish_obs():
         if tr.enabled:
             tr.count("search.trials", len(result.trials))
-            if cache is not None:
-                for key, v in cache.stats().items():
-                    tr.gauge(f"search.dse_cache.{key}", v)
         if recorder is not None:
             recorder.footer(best_score=result.best_score)
 
@@ -244,69 +246,89 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
             include_act=include_act, batch_size=batch_size, liar=liar,
             evaluator=type(evaluate).__name__)
     try:
-        n0 = 0
-        if x0 is not None:
-            xa = np.asarray(x0, dtype=np.float64).copy()
-            if len(xa) != dim:
-                raise ValueError(
-                    f"x0 has {len(xa)} dims, search space has {dim}")
-            if obs:
-                snap = _snap()
-                t0 = clk()
-            m = dict(evaluate(xa))
-            opt.tell(xa, record(xa, m))
-            if obs:
-                t3 = clk()
-                _observe(0, t0, t0, t3, t3, snap)
-            n0 = 1
-        if batch_size is None:
-            if not obs:
+        with tr.span("search"):
+            n0 = 0
+            if x0 is not None:
+                xa = np.asarray(x0, dtype=np.float64).copy()
+                if len(xa) != dim:
+                    raise ValueError(
+                        f"x0 has {len(xa)} dims, search space has {dim}")
+                with tr.span("trial", i=0):
+                    if obs:
+                        snap = _snap()
+                        t0 = clk()
+                    with tr.span("evaluate"):
+                        m = dict(evaluate(xa))
+                    with tr.span("tell"):
+                        opt.tell(xa, record(xa, m))
+                    if obs:
+                        t3 = clk()
+                        with tr.span("record"):
+                            _observe(0, t0, t0, t3, t3, snap)
+                n0 = 1
+            if batch_size is None:
+                if not obs:
+                    for it in range(max(iters - n0, 0)):
+                        x = opt.ask()
+                        m = dict(evaluate(x))
+                        opt.tell(x, record(x, m))
+                    return result
                 for it in range(max(iters - n0, 0)):
-                    x = opt.ask()
-                    m = dict(evaluate(x))
-                    opt.tell(x, record(x, m))
+                    with tr.span("trial", i=len(result.trials)):
+                        snap = _snap()
+                        t0 = clk()
+                        with tr.span("propose"):
+                            x = opt.ask()
+                        t1 = clk()
+                        with tr.span("evaluate"):
+                            m = dict(evaluate(x))
+                        t2 = clk()
+                        with tr.span("tell"):
+                            opt.tell(x, record(x, m))
+                        t3 = clk()
+                        with tr.span("record"):
+                            _observe(len(result.trials) - 1, t0, t1, t2, t3,
+                                     snap)
+                _finish_obs()
                 return result
-            for it in range(max(iters - n0, 0)):
-                snap = _snap()
-                t0 = clk()
-                x = opt.ask()
-                t1 = clk()
-                m = dict(evaluate(x))
-                t2 = clk()
-                opt.tell(x, record(x, m))
-                t3 = clk()
-                _observe(len(result.trials) - 1, t0, t1, t2, t3, snap)
-            _finish_obs()
-            return result
 
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        eval_batch = getattr(evaluate, "evaluate_batch", None)
-        done = n0
-        while done < iters:
-            k = min(batch_size, iters - done)
+            if batch_size < 1:
+                raise ValueError(
+                    f"batch_size must be >= 1, got {batch_size}")
+            eval_batch = getattr(evaluate, "evaluate_batch", None)
+            done = n0
+            while done < iters:
+                k = min(batch_size, iters - done)
+                with tr.span("round"):
+                    if obs:
+                        snap = _snap()
+                        t0 = clk()
+                    with tr.span("propose"):
+                        xs = opt.ask_batch(k, liar=liar)
+                    if obs:
+                        t1 = clk()
+                    with tr.span("evaluate"):
+                        ms = [dict(m) for m in eval_batch(xs)] \
+                            if eval_batch is not None and k > 1 \
+                            else [dict(evaluate(x)) for x in xs]
+                    if obs:
+                        t2 = clk()
+                    with tr.span("tell"):
+                        opt.tell_batch(xs, [record(x, m)
+                                            for x, m in zip(xs, ms)])
+                    if obs:
+                        t3 = clk()
+                        base = len(result.trials) - k
+                        with tr.span("record"):
+                            for j in range(k):
+                                _observe(base + j, t0, t1, t2, t3, snap,
+                                         first=(j == 0), round_size=k)
+                        for j in range(k):
+                            tr.add_span("trial", t0, t3, i=base + j)
+                done += k
             if obs:
-                snap = _snap()
-                t0 = clk()
-            xs = opt.ask_batch(k, liar=liar)
-            if obs:
-                t1 = clk()
-            ms = [dict(m) for m in eval_batch(xs)] \
-                if eval_batch is not None and k > 1 \
-                else [dict(evaluate(x)) for x in xs]
-            if obs:
-                t2 = clk()
-            opt.tell_batch(xs, [record(x, m) for x, m in zip(xs, ms)])
-            if obs:
-                t3 = clk()
-                base = len(result.trials) - k
-                for j in range(k):
-                    _observe(base + j, t0, t1, t2, t3, snap,
-                             first=(j == 0), round_size=k)
-            done += k
-        if obs:
-            _finish_obs()
-        return result
+                _finish_obs()
+            return result
     finally:
         if sync_lam:
             evaluate.lambdas = old_lam
@@ -1056,8 +1078,9 @@ class CNNEvaluator:
         over the static ``inputs``, in the evaluator's memory pool."""
         from repro_torch.kernels.graph import warm_and_capture
         t0 = time.perf_counter()
-        graph, out, static_out, grew = warm_and_capture(
-            lambda: self._device_pass(*inputs), self._pool, self.device)
+        with get_tracer().span("pass.build"):
+            graph, out, static_out, grew = warm_and_capture(
+                lambda: self._device_pass(*inputs), self._pool, self.device)
         self.graph_pool_bytes += grew
         self._graphs[key] = (graph, inputs, static_out)
         self.graphs_captured += 1
@@ -1070,23 +1093,28 @@ class CNNEvaluator:
         """One batched pass over (B, L) float32 ``s_w``, ``s_a`` and (B, L)
         ``codes`` (``None``: the seed program) -> (acc (B,), achieved s_w,
         measured s_a, measured tile fraction (B, L)), numpy, from one host
-        copy. ``n_real`` of the B rows are proposals, the rest padding."""
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
-                (s_w, s_a) + (() if codes is None else
-                              (codes.astype(np.int64),))]
-        if self.device.type != "cuda":
-            out = self._device_pass(*host)
-        else:
-            key = (codes is not None, s_w.shape[0])
-            built = self._graphs.get(key)
-            if built is None:
-                out = self._build(key, [t.to(self.device) for t in host])
+        copy. ``n_real`` of the B rows are proposals, the rest padding.
+        Under a tracer: an ``evaluate.pass`` span, and a ``pass.readback``
+        span around the blocking copy of the rows."""
+        tr = get_tracer()
+        with tr.span("evaluate.pass"):
+            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                    (s_w, s_a) + (() if codes is None else
+                                  (codes.astype(np.int64),))]
+            if self.device.type != "cuda":
+                out = self._device_pass(*host)
             else:
-                graph, inputs, out = built
-                for dst, src in zip(inputs, host):
-                    dst.copy_(src)
-                graph.replay()
-        out = out.cpu().numpy()
+                key = (codes is not None, s_w.shape[0])
+                built = self._graphs.get(key)
+                if built is None:
+                    out = self._build(key, [t.to(self.device) for t in host])
+                else:
+                    graph, inputs, out = built
+                    for dst, src in zip(inputs, host):
+                        dst.copy_(src)
+                    graph.replay()
+            with tr.span("pass.readback"):
+                out = out.cpu().numpy()
         self.stats_passes += 1
         self.stats_forwards += n_real
         L = len(self.names)
@@ -1287,12 +1315,29 @@ class CNNEvaluator:
             out.append(m)
         return out
 
+    def _scored(self, score: Callable[[], list]) -> list:
+        """``score()``, the host half of a call (perf model, DSE, Eq. 6),
+        inside an ``evaluate.dse`` span; under a tracer its args hold the
+        change of ``DSECache``'s counters over the span."""
+        tr = get_tracer()
+        cache = self.dse_cache
+        if not tr.enabled or cache is None:
+            with tr.span("evaluate.dse"):
+                return score()
+        before = cache.stats()
+        with tr.span("evaluate.dse") as span:
+            out = score()
+            after = cache.stats()
+            span.args.update({k: after[k] - before[k]
+                              for k in DSE_COUNTERS})
+        return out
+
     def __call__(self, x: np.ndarray) -> Dict[str, float]:
         # 1-2) one-shot prune + accuracy proxy + measured act sparsity
         acc, sw_meas, sa_meas, swt_meas, codes = self._eval_any(x)
-        return self._metrics(float(acc), sw_meas, sa_meas,
-                             swt_meas if self.tiled else None,
-                             codes=codes)
+        return self._scored(lambda: self._metrics(
+            float(acc), sw_meas, sa_meas, swt_meas if self.tiled else None,
+            codes=codes))
 
     def evaluate_batch(self, xs: Sequence[np.ndarray]) -> List[Dict[str, float]]:
         """Score a batch of proposals with ONE batched prune+forward pass,
@@ -1331,11 +1376,13 @@ class CNNEvaluator:
         accs, sw_meas, sa_meas, swt_meas = self._pass(s_w, s_a, codes, B)
         if B > 1 and self.dse_cache is not None and self.batch_dse \
                 and self.dse_engine == "auto":
-            return self._metrics_batch(accs[:B], sw_meas[:B], sa_meas[:B],
-                                       swt_meas[:B] if self.tiled else None,
-                                       codes_rows=codes_rows)
-        return [self._metrics(float(accs[b]), sw_meas[b], sa_meas[b],
-                              swt_meas[b] if self.tiled else None,
-                              codes=codes_rows[b]
-                              if codes_rows is not None else None)
-                for b in range(B)]
+            return self._scored(lambda: self._metrics_batch(
+                accs[:B], sw_meas[:B], sa_meas[:B],
+                swt_meas[:B] if self.tiled else None,
+                codes_rows=codes_rows))
+        return self._scored(lambda: [
+            self._metrics(float(accs[b]), sw_meas[b], sa_meas[b],
+                          swt_meas[b] if self.tiled else None,
+                          codes=codes_rows[b]
+                          if codes_rows is not None else None)
+            for b in range(B)])

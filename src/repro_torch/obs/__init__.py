@@ -1,9 +1,11 @@
 """Unified telemetry (DESIGN.md §18): span tracing, counters, and the
-search flight recorder — zero-dependency, no-op by default.
+search flight recorder — no-op by default.
 
-``repro_torch.obs.trace``    — ``Tracer`` (nested spans / counters / gauges /
-                         histograms), the process-global no-op default,
-                         Chrome trace-event + flat metrics exporters.
+``repro_torch.obs.trace``    — ``Tracer`` (nested spans with ids and
+                         parents, mirrored into a recording
+                         ``torch.profiler`` session as ``obs:`` ranges;
+                         counters), the process-global no-op default,
+                         the Chrome trace-event exporter.
 ``repro_torch.obs.recorder`` — ``FlightRecorder``: one structured JSONL record
                          per search trial plus run header/footer.
 ``repro_torch.obs.log``      — tiny level-filtered logger routed through the

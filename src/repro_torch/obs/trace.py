@@ -1,20 +1,26 @@
-"""Span tracing, counters, gauges, and histograms (DESIGN.md §18).
+"""Span tracing and counters (DESIGN.md §18).
 
 The process-global tracer defaults to ``NULL_TRACER``, whose ``enabled``
-attribute is ``False`` — instrumented code guards every emission behind
-``if tr.enabled`` (or never branches at all: the search loop keeps its
-uninstrumented hot loop verbatim when tracing is off), so the disabled
-path pays one attribute check and stays IEEE-bit-identical to the
-pre-telemetry build. Instrumentation only *reads* clocks and counters; it
+attribute is ``False`` and whose ``span`` hands out one shared no-op
+context manager — instrumented code guards every other emission behind
+``if tr.enabled`` (or never branches at all: the serial search loop keeps
+its uninstrumented hot loop verbatim when tracing is off), so the
+disabled path pays an attribute check or a no-op ``with`` and stays
+IEEE-bit-identical to the pre-telemetry build. Instrumentation only *reads* clocks and counters; it
 never touches a float any engine computes, so the enabled path is
-bit-identical too (gated in ``benchmarks/obs_bench.py``).
+bit-identical too (gated in ``benchmarks_torch/obs_bench.py``).
+
+Every finished span carries an ``id`` and its opener's id (``parent``,
+``None`` at a root) beside its ``depth``. While a ``torch.profiler``
+session records, a span opened with ``Tracer.span`` is also a host range
+of the profile, ``obs:<name>``, entered and left with the span: the two
+share the profiler's clock, so a span lies on the device trace. With no
+profiler a span reads the clock twice and nothing else.
 
 The clock is injectable (``Tracer(clock=...)``) so tests run on fake time.
-Exporters: ``to_chrome_trace``/``export_chrome_trace`` emit Chrome
-trace-event JSON (``{"traceEvents": [...]}`` with "X" complete events —
-loadable in Perfetto / ``chrome://tracing``); ``metrics``/
-``export_metrics`` emit one flat JSON of counters, gauges, and histogram
-summaries.
+``to_chrome_trace``/``export_chrome_trace`` emit Chrome trace-event JSON
+(``{"traceEvents": [...]}`` with "X" complete events — loadable in
+Perfetto / ``chrome://tracing``); ``id`` and ``parent`` ride in ``args``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ import json
 import time
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
+
+import torch
+
+#: prefix of a span's range in a ``torch.profiler`` profile
+PROFILE_PREFIX = "obs:"
 
 
 class Counters:
@@ -83,17 +94,11 @@ class NullTracer:
     def span(self, name: str, **args) -> _NullSpan:
         return _NULL_SPAN
 
-    def add_span(self, name: str, t0: float, t1: float, depth: int = 0,
-                 **args) -> None:
+    def add_span(self, name: str, t0: float, t1: float,
+                 depth: Optional[int] = None, **args) -> None:
         pass
 
     def count(self, name: str, n: float = 1) -> None:
-        pass
-
-    def gauge(self, name: str, value: float) -> None:
-        pass
-
-    def observe(self, name: str, value: float) -> None:
         pass
 
     def instant(self, name: str, **args) -> None:
@@ -105,9 +110,11 @@ NULL_TRACER = NullTracer()
 
 class _Span:
     """An open span: records its end time and pops itself off the tracer's
-    stack on ``__exit__``. Exceptions propagate (the span still closes)."""
+    stack on ``__exit__``. Exceptions propagate (the span still closes).
+    ``args`` may be added to while the span is open."""
 
-    __slots__ = ("_tr", "name", "t0", "depth", "args")
+    __slots__ = ("_tr", "name", "t0", "depth", "args", "id", "parent",
+                 "_range")
 
     def __init__(self, tr: "Tracer", name: str, args: dict):
         self._tr = tr
@@ -115,31 +122,48 @@ class _Span:
         self.args = args
 
     def __enter__(self) -> "_Span":
-        self.depth = len(self._tr._stack)
-        self._tr._stack.append(self)
-        self.t0 = self._tr.now()
+        tr = self._tr
+        stack = tr._stack
+        self.depth = len(stack)
+        self.parent = stack[-1].id if stack else None
+        self.id = tr._new_id()
+        stack.append(self)
+        self._range = None
+        if torch._C._autograd._profiler_enabled():
+            # PyTorch's lightweight ``record_function``. On an H100's host
+            # (torch 2.11, ``tools/search_spans_torch.py``'s
+            # ``span_cost_us``) a bare range costs 1.3-1.9 us and lasts
+            # 9-20 us longer in the profile than the work inside it; the
+            # public ``record_function`` costs 7.9-13.8 us and its range
+            # lasts 77-144 us longer, which would blur spans of ~0.1 ms
+            self._range = torch._C._profiler._RecordFunctionFast(
+                PROFILE_PREFIX + self.name)
+            self._range.__enter__()
+        self.t0 = tr.now()
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = self._tr.now()
-        self._tr._stack.pop()
-        self._tr._finish(self.name, self.t0, t1, self.depth, self.args)
+        tr = self._tr
+        t1 = tr.now()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        tr._stack.pop()
+        tr._record(self.name, self.t0, t1, self.depth, self.args, self.id,
+                   self.parent)
         return False
 
 
 class Tracer:
-    """Collects nested spans, counters, gauges, and histograms in-process.
+    """Collects nested spans and counters in-process.
 
-    * ``span(name, **args)`` — context manager; nesting depth comes from
-      the tracer's open-span stack, start/end from its clock.
-    * ``add_span(name, t0, t1, depth=0, **args)`` — record a span whose
-      times the caller already measured (the search loop reads the clock
-      inline so its per-trial overhead is four clock reads, not four
-      context-manager frames).
-    * ``count(name, n)`` / ``gauge(name, v)`` / ``observe(name, v)`` —
-      monotonic counters, last-value gauges, and min/max/sum/count
-      histogram summaries. ``instant(name, **args)`` records a
-      zero-duration marker event.
+    * ``span(name, **args)`` — context manager; nesting depth and parent
+      come from the tracer's open-span stack, start/end from its clock.
+    * ``add_span(name, t0, t1, depth=None, **args)`` — record a span
+      whose times the caller already measured; its parent is the
+      innermost open span, and so is its depth unless given. It appears
+      in no profile.
+    * ``count(name, n)`` — monotonic counters. ``instant(name, **args)``
+      records a zero-duration marker event.
 
     Timestamps are whatever the injected ``clock`` returns (seconds by
     default); the Chrome exporter scales to microseconds.
@@ -151,64 +175,57 @@ class Tracer:
         self._clock = clock
         self.events: List[dict] = []     # finished spans + instants
         self._stack: List[_Span] = []
+        self._ids = 0
         self.counters: Dict[str, float] = {}
-        self.gauges: Dict[str, float] = {}
-        self.hists: Dict[str, Dict[str, float]] = {}
 
     # ----------------------------------------------------------------- #
     def now(self) -> float:
         return self._clock()
 
+    def _new_id(self) -> int:
+        self._ids += 1
+        return self._ids
+
+    def _open_id(self) -> Optional[int]:
+        return self._stack[-1].id if self._stack else None
+
     def span(self, name: str, **args) -> _Span:
         return _Span(self, name, args)
 
-    def add_span(self, name: str, t0: float, t1: float, depth: int = 0,
-                 **args) -> None:
-        self._finish(name, t0, t1, depth, args)
+    def add_span(self, name: str, t0: float, t1: float,
+                 depth: Optional[int] = None, **args) -> None:
+        self._record(name, t0, t1,
+                     len(self._stack) if depth is None else depth, args,
+                     self._new_id(), self._open_id())
 
-    def _finish(self, name: str, t0: float, t1: float, depth: int,
-                args: dict) -> None:
+    def _record(self, name: str, t0: float, t1: float, depth: int,
+                args: dict, id: int, parent: Optional[int]) -> None:
         self.events.append({"name": name, "t0": t0, "t1": t1,
-                            "depth": depth, "args": args})
+                            "depth": depth, "args": args, "id": id,
+                            "parent": parent})
 
     def instant(self, name: str, **args) -> None:
         t = self.now()
-        self.events.append({"name": name, "t0": t, "t1": t,
-                            "depth": len(self._stack), "args": args})
+        self._record(name, t, t, len(self._stack), args, self._new_id(),
+                     self._open_id())
 
     def count(self, name: str, n: float = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
 
-    def gauge(self, name: str, value: float) -> None:
-        self.gauges[name] = value
-
-    def observe(self, name: str, value: float) -> None:
-        h = self.hists.get(name)
-        if h is None:
-            self.hists[name] = {"count": 1, "sum": value,
-                                "min": value, "max": value}
-        else:
-            h["count"] += 1
-            h["sum"] += value
-            if value < h["min"]:
-                h["min"] = value
-            if value > h["max"]:
-                h["max"] = value
-
     # ----------------------------------------------------------------- #
     def to_chrome_trace(self, pid: int = 0, tid: int = 0) -> dict:
         """Chrome trace-event JSON: one "X" (complete) event per finished
-        span, "i" (instant) for zero-duration markers; ``ts``/``dur`` in
-        microseconds as the format requires. Loadable in Perfetto."""
+        span and marker, ``ts``/``dur`` in microseconds as the format
+        requires, the span's ``id`` and ``parent`` in ``args``. Loadable
+        in Perfetto."""
         out = []
         for e in self.events:
             ts = e["t0"] * 1e6
             dur = (e["t1"] - e["t0"]) * 1e6
-            ev = {"name": e["name"], "ph": "X", "ts": ts, "dur": dur,
-                  "pid": pid, "tid": tid}
-            if e["args"]:
-                ev["args"] = dict(e["args"])
-            out.append(ev)
+            out.append({"name": e["name"], "ph": "X", "ts": ts, "dur": dur,
+                        "pid": pid, "tid": tid,
+                        "args": {**e["args"], "id": e["id"],
+                                 "parent": e["parent"]}})
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
     def export_chrome_trace(self, path: str, pid: int = 0,
@@ -216,16 +233,6 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.to_chrome_trace(pid=pid, tid=tid), f, indent=1,
                       sort_keys=True)
-        return path
-
-    def metrics(self) -> dict:
-        return {"counters": dict(self.counters),
-                "gauges": dict(self.gauges),
-                "histograms": {k: dict(v) for k, v in self.hists.items()}}
-
-    def export_metrics(self, path: str) -> str:
-        with open(path, "w") as f:
-            json.dump(self.metrics(), f, indent=1, sort_keys=True)
         return path
 
 

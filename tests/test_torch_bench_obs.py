@@ -5,10 +5,12 @@ CPU.
 The JAX script's ``identity``, ``trace`` and ``report`` sections run at
 ``smoke=True`` (their files in a temporary directory) and the port's
 ``run(smoke=True, device="cpu")`` writes into another; the two agree
-section for section, apart from wall-clock fields and where the trace was
-written. The ``overhead`` section's < 3 % gate reads the host's clock,
-which a loaded test machine can miss: here its two arms' transcripts are
-held bit-identical at a smaller size and the gate runs on fixed ratios
+section for section, apart from wall-clock fields, where the trace was
+written and the trace's count of events (the port's search opens a
+``search`` span and a ``record`` span a trial besides). The ``overhead``
+section's < 3 % gate reads the host's clock, which a loaded test machine
+can miss: here its two arms' transcripts are held bit-identical at a
+smaller size and the gate runs on fixed ratios
 (``chip_smoke.py`` runs it for real). ``tools/trace_report.py`` is
 stdlib-only and reads the recorder's JSONL format, which the port keeps:
 run as a script on the port's recordings it summarises them as it does
@@ -59,8 +61,13 @@ def test_obs_bench_payload_equals_the_jax_script_but_for_wall_clock(
                         lambda *a: (ratios, 1.5, 1.6))
     got = obs_bench.run(smoke=True, device="cpu", out_dir=str(tmp_path))
     assert load(tmp_path / "obs_bench_cpu.json") == jsonable(got)
-    assert without(got, obs_bench.WALL_CLOCK) == dict(
-        without(obs_jax, obs_bench.WALL_CLOCK), smoke=True,
+    # the port's serial search adds to the JAX package's four spans a
+    # trial (trial, propose, evaluate, tell) a ``record`` span a trial and
+    # one ``search`` span: every other number is the JAX script's
+    jax_trace = obs_jax["trace"]
+    assert got["trace"]["events"] == jax_trace["events"] + ITERS + 1
+    assert without(got, obs_bench.WALL_CLOCK + ("events",)) == dict(
+        without(obs_jax, obs_bench.WALL_CLOCK + ("events",)), smoke=True,
         overhead_gate_pct=3.0,
         overhead={"iters": 400, "reps": 3, "gate_pct": 3.0})
     assert got["overhead"]["overhead_pct"] == -0.2

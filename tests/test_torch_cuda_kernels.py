@@ -430,3 +430,22 @@ def test_cuda_replays_count_their_launches(cuda_evaluator):
     graph = ev._graphs[(False, 3)][0]
     assert graph.held == {"act_clip_count": 0, "act_clip_count_batched": L,
                           "block_sparse_matmul": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_pass_build_span_once_per_batch_shape(cuda_evaluator):
+    """Under a tracer the first pass of a batch shape opens one
+    ``pass.build`` span inside its ``evaluate.pass``; replays open none."""
+    from repro_torch import obs
+    ev = cuda_evaluator
+    L = len(ev.names)
+    tracer = obs.Tracer()
+    with obs.use_tracer(tracer):
+        for seed in range(3):
+            ev._pass(*_rounds(L, 5, seed), None, 5)      # B = 5: new shape
+        ev._pass(*_rounds(L, 5, 3), None, 4)             # one row padding
+    builds = [e for e in tracer.events if e["name"] == "pass.build"]
+    passes = [e for e in tracer.events if e["name"] == "evaluate.pass"]
+    assert len(builds) == 1 and len(passes) == 4
+    assert builds[0]["parent"] == passes[0]["id"]
+    assert sum(e["name"] == "pass.readback" for e in tracer.events) == 4
