@@ -894,13 +894,15 @@ def _compiler() -> Optional[str]:
     return None
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    if os.environ.get("REPRO_DSE_CKERNEL", "1") in ("0", "off", "false"):
-        return None
+def compile_shared(stem: str, src: str, cflags) -> Optional[ctypes.CDLL]:
+    """Load ``src`` compiled with ``cflags`` as a shared object, building
+    it into ``_build_dir()`` as ``<stem>_<hash>.so`` if no build of this
+    source and these flags is there yet. None without a compiler or when
+    the build or the load fails."""
     tag = hashlib.sha256(
-        (_C_SRC + "\x00" + " ".join(_CFLAGS)).encode()).hexdigest()[:16]
+        (src + "\x00" + " ".join(cflags)).encode()).hexdigest()[:16]
     bdir = _build_dir()
-    so = os.path.join(bdir, f"dse_kernel_{tag}.so")
+    so = os.path.join(bdir, f"{stem}_{tag}.so")
     if not os.path.exists(so):
         cc = _compiler()
         if cc is None:
@@ -908,18 +910,26 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             os.makedirs(bdir, exist_ok=True)
             with tempfile.TemporaryDirectory(dir=bdir) as td:
-                src = os.path.join(td, "dse_kernel.c")
-                tmp_so = os.path.join(td, "dse_kernel.so")
-                with open(src, "w") as f:
-                    f.write(_C_SRC)
-                subprocess.run([cc, *_CFLAGS, src, "-o", tmp_so, "-lm"],
+                c_path = os.path.join(td, f"{stem}.c")
+                tmp_so = os.path.join(td, f"{stem}.so")
+                with open(c_path, "w") as f:
+                    f.write(src)
+                subprocess.run([cc, *cflags, c_path, "-o", tmp_so, "-lm"],
                                check=True, capture_output=True, timeout=120)
                 os.replace(tmp_so, so)   # atomic publish; races converge
         except (OSError, subprocess.SubprocessError):
             return None
     try:
-        lib = ctypes.CDLL(so)
+        return ctypes.CDLL(so)
     except OSError:
+        return None
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    if os.environ.get("REPRO_DSE_CKERNEL", "1") in ("0", "off", "false"):
+        return None
+    lib = compile_shared("dse_kernel", _C_SRC, _CFLAGS)
+    if lib is None:
         return None
     lib.dse_run_batch.restype = ctypes.c_int
     lib.dse_run_batch.argtypes = [

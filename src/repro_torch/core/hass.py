@@ -25,7 +25,7 @@ from repro_torch.obs.trace import get_tracer
 from repro_torch.core.perf_model import (FPGAModel, HardwareModel, LayerCost,
                                    TPUModel, lm_layer_costs, pair_sparsity,
                                    tile_quantize_sparsity)
-from repro_torch.core.tpe import TPE
+from repro_torch.core.tpe import TPE, kde_engine_stats
 
 #: ``DSECache`` counters whose change an ``evaluate.dse`` span carries
 DSE_COUNTERS = ("hits", "warm_l1", "warm_l2", "cold_runs")
@@ -139,13 +139,13 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
 
     ``recorder`` (an ``repro_torch.obs.FlightRecorder``) emits one structured
     JSONL record per trial — proposal, score, metric terms, DSECache and
-    engine-dispatch counter deltas, per-phase timings — plus run
-    header/footer (DESIGN.md §18). Spans land in the process-global tracer
-    when one is installed (``repro_torch.obs.use_tracer``). With neither, the
-    loop below is the literal uninstrumented seed path; with either,
-    instrumentation only reads clocks and counters, so the trial
-    transcript stays bit-identical in every state (gated in
-    ``benchmarks/obs_bench.py``).
+    engine-dispatch counter deltas (the DSE's and the TPE KDE's), per-phase
+    timings — plus run header/footer (DESIGN.md §18). Spans land in the
+    process-global tracer when one is installed
+    (``repro_torch.obs.use_tracer``). With neither, the loop below is the
+    literal uninstrumented seed path; with either, instrumentation only
+    reads clocks and counters, so the trial transcript stays bit-identical
+    in every state (gated in ``benchmarks/obs_bench.py``).
     """
     lambdas = Lambdas() if lambdas is None else lambdas
     dim = n_layers * (2 if include_act else 1)
@@ -208,9 +208,11 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
     clk = tr.now if tr.enabled else time.perf_counter
     cache = getattr(evaluate, "dse_cache", None)
 
+    kde0 = kde_engine_stats()
+
     def _snap():
         return (dict(cache.stats()) if cache is not None else {},
-                engine_dispatch_stats())
+                {**engine_dispatch_stats(), **kde_engine_stats()})
 
     def _observe(k, t0, t1, t2, t3, snap, first=True, round_size=1):
         """Write trial ``result.trials[k]`` to the recorder. Batched rounds
@@ -236,6 +238,8 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
     def _finish_obs():
         if tr.enabled:
             tr.count("search.trials", len(result.trials))
+            for key, n in kde_engine_stats().items():
+                tr.count(key, n - kde0[key])
         if recorder is not None:
             recorder.footer(best_score=result.best_score)
 

@@ -6,6 +6,10 @@ split observations at the γ-quantile into good/bad sets, fit diagonal Parzen
 (KDE) densities l(x), g(x), and pick the candidate maximizing l(x)/g(x)
 among ``n_ei`` samples drawn from l.
 
+The KDE's squared-distance sums run in compiled C where the host has a C
+compiler (``_tpe_ckernel``: numpy's own summation order, so the same
+float64 bits), else in numpy; ``kde_engine_stats()`` counts each.
+
 Categorical dims (``cats``; DESIGN.md §16): a dim with cardinality k > 0
 lives on [lo, lo+k) and every proposal is snapped to a bin center
 ``lo + floor(x - lo) + 0.5`` AFTER the continuous machinery runs — the
@@ -18,9 +22,35 @@ one-Parzen-per-category TPE behavior in the limit.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.core import _tpe_ckernel
+from repro_torch.obs.trace import Counters
+
+# which engine each ``TPE._log_kde`` call's squared-distance sums ran on:
+# always-on plain dict increments, read by ``hass_search`` beside the DSE's
+# engine dispatch (the recorder's ``engine`` deltas, the tracer's counters)
+KDE_ENGINE = Counters("tpe.kde_native", "tpe.kde_numpy")
+
+
+def kde_engine_stats() -> Dict[str, int]:
+    """Cumulative ``_log_kde`` calls by engine for this process."""
+    return KDE_ENGINE.as_dict()
+
+
+def _sq_dist_sums(x: np.ndarray, pts: np.ndarray,
+                  bw: np.ndarray) -> np.ndarray:
+    """``s[i, j] = sum_d ((x[i, d] - pts[j, d]) / bw[j, d])**2``: compiled
+    where it can be, else numpy's expression; the same array either way."""
+    s = _tpe_ckernel.sq_dist_sums(x, pts, bw)
+    if s is not None:
+        KDE_ENGINE.inc("tpe.kde_native")
+        return s
+    KDE_ENGINE.inc("tpe.kde_numpy")
+    d = (x[:, None, :] - pts[None, :, :]) / bw[None]      # (n, m, D)
+    return np.sum(d * d, axis=-1)
 
 
 @dataclass
@@ -88,6 +118,7 @@ class TPE:
         return cand[int(np.argmax(score))]
 
     def ask(self) -> np.ndarray:
+        _tpe_ckernel.get_lib()   # build once, before any search needs it
         if len(self.xs) < self.n_startup:
             return self._snap(self._rng.uniform(self.lo, self.hi))
         return self._snap(self._propose(self._fit()))
@@ -121,6 +152,7 @@ class TPE:
         """
         if liar not in (None, "min", "mean", "max"):
             raise ValueError(f"unknown liar mode {liar!r}")
+        _tpe_ckernel.get_lib()   # build once, before any search needs it
         if liar is None or k <= 1 or not self.ys:
             if len(self.xs) < self.n_startup:
                 return [self._snap(self._rng.uniform(self.lo, self.hi))
@@ -214,8 +246,7 @@ class TPE:
 
     def _log_kde(self, x: np.ndarray, pts: np.ndarray,
                  bw: np.ndarray) -> np.ndarray:
-        d = (x[:, None, :] - pts[None, :, :]) / bw[None]      # (n, m, D)
-        log_comp = -0.5 * np.sum(d * d, axis=-1) - \
+        log_comp = -0.5 * _sq_dist_sums(x, pts, bw) - \
             np.sum(np.log(bw), axis=-1)[None]
         m = log_comp.max(axis=1, keepdims=True)
         return (m[:, 0] + np.log(np.exp(log_comp - m).sum(axis=1))) - \

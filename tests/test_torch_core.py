@@ -177,6 +177,25 @@ def test_tpe_streams_identical(cats):
         t.tell_batch(bt, [f(x) for x in bt])
 
 
+@pytest.mark.parametrize("liar", ["min", None])
+@pytest.mark.parametrize("dim", [42, 66])
+def test_tpe_streams_identical_at_the_benchmarks_dims(dim, liar):
+    """96-trial searches in rounds of 8 at the benchmark cells' dims
+    (ResNet-18's 42, MobileNetV3-L's 66), scores rounded to 0.1 so the
+    good/bad split meets ties: every proposal equal to the reference's."""
+    centre = np.random.default_rng(dim).uniform(0.0, 0.95, dim)
+
+    def f(x):
+        return round(-float(np.sum((x - centre) ** 2)), 1)
+    lo, hi = np.zeros(dim), np.full(dim, 0.95)
+    j, t = JTPE(lo=lo, hi=hi, seed=11), TTPE(lo=lo, hi=hi, seed=11)
+    for _ in range(12):
+        bj, bt = j.ask_batch(8, liar=liar), t.ask_batch(8, liar=liar)
+        assert all(np.array_equal(a, b) for a, b in zip(bj, bt))
+        j.tell_batch(bj, [f(x) for x in bj])
+        t.tell_batch(bt, [f(x) for x in bt])
+
+
 @pytest.mark.parametrize("kw", [
     dict(hw="FPGAModel", batch_size=None, hardware_aware=True),
     dict(hw="FPGAModel", batch_size=4, hardware_aware=True),

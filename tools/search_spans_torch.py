@@ -16,6 +16,8 @@ with a ``repro_torch.obs.Tracer`` installed.
   ``obs:pass.readback`` in the profiled search, per ``obs:round``),
   ``dse_ms`` (``evaluate.dse`` per round) and ``dse_cold_share`` (cold
   runs over all ``DSECache`` decisions in the ``evaluate.dse`` spans).
+* The tracer's counters over the window (``tpe.kde_native`` /
+  ``tpe.kde_numpy``: which engine the TPE's KDE ran on).
 * What the spans cost: a span's enter and exit with and without a
   recording profiler, and a bare profile range by each of PyTorch's two
   mechanisms.
@@ -294,6 +296,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     recorded = searches(tracer.events, 1, harness.RECORDED_SEARCHES)
     out["spans"] = span_readings(recorded)
     out["profiled_spans"] = span_readings(searches(tracer.events, 0, 0))
+    out["counters"] = dict(tracer.counters)
     out["span_cost_us"] = span_cost_us(dev)
     out["spans_a_round"] = sum(e["name"] not in ("trial", "search")
                                for e in recorded) / max(
