@@ -18,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import pruning
 from repro_torch.core.dse import (DSECache, ParetoFrontier, engine_dispatch_stats,
                             incremental_dse)
@@ -926,8 +927,17 @@ class CNNEvaluator:
     #                             metric
 
     def __post_init__(self):
+        """Under a tracer: an ``evaluator.build`` span over the set-up, and
+        inside it ``build.dense_forward``, ``build.act_samples`` (which
+        counts ``evaluator.act_sample_elems``), ``build.dense_dse`` and
+        ``build.weight_sort``."""
+        with get_tracer().span("evaluator.build"):
+            self._set_up()
+
+    def _set_up(self):
         from repro_torch.core.perf_model import cnn_layer_costs
         from repro_torch.models import cnn
+        tr = get_tracer()
         self._cnn = cnn
         if self.patterns is not None:
             self.patterns = tuple(self.patterns)
@@ -940,26 +950,30 @@ class CNNEvaluator:
         self.names = [l.name for l in self.prunable]
         self.tiled = isinstance(self.hw, TPUModel)
         with torch.no_grad(), _float32_convolutions():
-            self.dense_logits = cnn.forward(
-                self.cfg, self.params, self.images).cpu().numpy()
-            self.dense_pred = torch.from_numpy(
-                self.dense_logits.argmax(-1)).to(self.device)
+            with tr.span("build.dense_forward"):
+                self.dense_logits = cnn.forward(
+                    self.cfg, self.params, self.images).cpu().numpy()
+                self.dense_pred = torch.from_numpy(
+                    self.dense_logits.argmax(-1)).to(self.device)
             # activation magnitude samples per prunable layer (for tau_a
             # quantiles), on the device: a proposal's taus are gathered there
-            samples = self._collect_act_samples()
-            self._act_q = torch.from_numpy(np.stack(
-                [samples[n] for n in self.names]).astype(np.float32)
-            ).to(self.device)
+            with tr.span("build.act_samples"):
+                samples = self._collect_act_samples()
+                self._act_q = torch.from_numpy(np.stack(
+                    [samples[n] for n in self.names]).astype(np.float32)
+                ).to(self.device)
         self.dse_cache = DSECache() if self.accel else None
-        dense = incremental_dse(self.layers, self.hw, self.budget,
-                                max_iters=self.dse_iters)
+        with tr.span("build.dense_dse"):
+            dense = incremental_dse(self.layers, self.hw, self.budget,
+                                    max_iters=self.dse_iters)
         self.dense_thr = dense.throughput * self.hw.freq
         # accel: weights never change across a search, so each layer's
         # sorted |w| is computed ONCE here and every proposal's tau_w is an
         # O(1) gather instead of a re-sort per layer per call
-        self._asort = {n: pruning.sorted_abs(self.params[n]["w"])
-                       for n in self.names} \
-            if self.accel and not self.tiled else None
+        with tr.span("build.weight_sort"):
+            self._asort = {n: pruning.sorted_abs(self.params[n]["w"])
+                           for n in self.names} \
+                if self.accel and not self.tiled else None
 
         # pattern axis state
         self.n_pattern_dims = len(self.prunable) \
@@ -1098,10 +1112,14 @@ class CNNEvaluator:
         ``codes`` (``None``: the seed program) -> (acc (B,), achieved s_w,
         measured s_a, measured tile fraction (B, L)), numpy, from one host
         copy. ``n_real`` of the B rows are proposals, the rest padding.
-        Under a tracer: an ``evaluate.pass`` span, and a ``pass.readback``
-        span around the blocking copy of the rows."""
+        Under a tracer: an ``evaluate.pass`` span, a ``pass.readback``
+        span around the blocking copy of the rows, and the counter
+        ``pass.clip_launches``, the batched clip kernel's launches in the
+        pass (one per prunable layer on the card, none on the CPU)."""
         tr = get_tracer()
         with tr.span("evaluate.pass"):
+            if tr.enabled:
+                clips = kernels.launch_counts()["act_clip_count_batched"]
             host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
                     (s_w, s_a) + (() if codes is None else
                                   (codes.astype(np.int64),))]
@@ -1119,6 +1137,9 @@ class CNNEvaluator:
                     graph.replay()
             with tr.span("pass.readback"):
                 out = out.cpu().numpy()
+            if tr.enabled:
+                tr.count("pass.clip_launches", kernels.launch_counts()[
+                    "act_clip_count_batched"] - clips)
         self.stats_passes += 1
         self.stats_forwards += n_real
         L = len(self.names)
@@ -1136,8 +1157,11 @@ class CNNEvaluator:
 
     def _collect_act_samples(self) -> Dict[str, np.ndarray]:
         """|activation| quantiles at each prunable layer's input (dense run):
-        the calibration pass that maps target S_a -> clip threshold tau_a."""
+        the calibration pass that maps target S_a -> clip threshold tau_a.
+        Under a tracer the counter ``evaluator.act_sample_elems`` adds the
+        elements copied to the host."""
         cnn = self._cnn
+        tr = get_tracer()
         _, outs = cnn.forward(self.cfg, self.params, self.images,
                               return_intermediates=True)
         specs = cnn.build_specs(self.cfg)
@@ -1149,6 +1173,7 @@ class CNNEvaluator:
                 flat = np.abs(outs[inp_name].to("cpu", torch.float32)
                               .numpy()).reshape(-1)
                 samples[s.name] = np.quantile(flat, np.linspace(0, 0.999, 256))
+                tr.count("evaluator.act_sample_elems", flat.size)
             last = s.name
         return samples
 

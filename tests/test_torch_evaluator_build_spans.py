@@ -1,0 +1,101 @@
+"""The evaluator's set-up under a tracer, on the CPU at 32 x 32: one
+``evaluator.build`` span with its four ``build.*`` children, each once;
+the counter ``evaluator.act_sample_elems`` at the elements of every
+prunable layer's input over the images; ``pass.clip_launches`` at the
+batched clip's launches in a pass; and without a tracer the same set-up
+bits."""
+import numpy as np
+import pytest
+import torch
+
+from hassbench import inputs, yardstick
+from hassbench.reference.layers import load
+from repro_torch import kernels
+from repro_torch.obs import Tracer, use_tracer
+
+BUILD = ("build.dense_forward", "build.act_samples", "build.dense_dse",
+         "build.weight_sort")
+ARCHS = {"resnet18": 12234, "resnet50": 7434}
+
+
+def _build(arch, tracer=None):
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.hass import CNNEvaluator
+    from repro_torch.core.perf_model import FPGAModel
+    layers = load(arch, 32, 1000)
+    params, images = inputs.make(layers, 3, 8, 32, torch.device("cpu"))
+    cfg = ModelConfig(name=arch, family="cnn", cnn_arch=arch, img_res=32,
+                      num_classes=1000)
+    if tracer is None:
+        return layers, CNNEvaluator(cfg, params, images, FPGAModel(),
+                                    budget=ARCHS[arch], dse_iters=600,
+                                    cost_cfg=cfg)
+    with use_tracer(tracer):
+        return layers, CNNEvaluator(cfg, params, images, FPGAModel(),
+                                    budget=ARCHS[arch], dse_iters=600,
+                                    cost_cfg=cfg)
+
+
+@pytest.fixture(scope="module", params=sorted(ARCHS))
+def traced(request):
+    tracer = Tracer()
+    layers, ev = _build(request.param, tracer)
+    return request.param, layers, ev, tracer
+
+
+def test_the_build_spans_open_once_each_inside_evaluator_build(traced):
+    _, _, _, tracer = traced
+    roots = [e for e in tracer.events if e["name"] == "evaluator.build"]
+    assert len(roots) == 1 and roots[0]["parent"] is None
+    for name in BUILD:
+        got = [e for e in tracer.events if e["name"] == name]
+        assert len(got) == 1, name
+        assert got[0]["parent"] == roots[0]["id"]
+        assert roots[0]["t0"] <= got[0]["t0"] <= got[0]["t1"] <= \
+            roots[0]["t1"]
+    assert {e["name"] for e in tracer.events} == {"evaluator.build", *BUILD}
+
+
+def test_act_sample_elems_counts_every_prunable_input(traced):
+    _, layers, ev, tracer = traced
+    want = sum(yardstick.clip_inputs(layers, ev.images.shape[0]))
+    assert tracer.counters == {"evaluator.act_sample_elems": want}
+
+
+def test_without_a_tracer_the_set_up_is_bit_equal(traced):
+    arch, _, ev, _ = traced
+    _, plain = _build(arch)
+    assert np.array_equal(plain.dense_logits, ev.dense_logits)
+    assert torch.equal(plain._act_q, ev._act_q)
+    assert plain.dense_thr == ev.dense_thr
+
+
+def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
+        traced, monkeypatch):
+    """On the CPU the clip runs its plain version and launches nothing;
+    with each call counted as the card's wrapper counts a launch, a pass
+    counts one per prunable layer."""
+    _, _, ev, _ = traced
+    L = len(ev.prunable)
+    rng = np.random.default_rng(0)
+    s = rng.uniform(0, 0.9, (2, L)).astype(np.float32)
+    tracer = Tracer()
+    with use_tracer(tracer):
+        ev._pass(s, s, None, 2)
+    assert tracer.counters == {"pass.clip_launches": 0}
+    plain = kernels.ops.act_clip_batched
+    # the process's own launch count is put back after the test
+    monkeypatch.setitem(kernels._LAUNCHED, "act_clip_count_batched",
+                        kernels.launch_counts()["act_clip_count_batched"])
+
+    def launched(x, taus):
+        out = plain(x, taus)
+        kernels._LAUNCHED["act_clip_count_batched"] += 1
+        return out
+    monkeypatch.setattr(kernels.ops, "act_clip_batched", launched)
+    with use_tracer(tracer):
+        ev._pass(s, s, None, 2)
+        ev._pass(s[:1], s[:1], None, 1)
+    assert tracer.counters == {"pass.clip_launches": 2 * L}
+    ev._pass(s, s, None, 2)
+    assert tracer.counters == {"pass.clip_launches": 2 * L}

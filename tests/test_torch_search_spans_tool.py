@@ -3,7 +3,7 @@ synthetic profile: each instant of a device idle gap put under the
 innermost program span over it (a gap under none goes to ``(none)``), the
 rollups the benchmark's own buckets are compared with, and the per-round
 readings ``pass_wait_ms``, ``pass_bubble_ms``, ``dse_ms`` and
-``dse_cold_share``."""
+``dse_cold_share``; the evaluator's set-up spans in ms."""
 from types import SimpleNamespace
 
 import pytest
@@ -166,3 +166,20 @@ def test_profile_without_device_work_reads_nothing():
     ev = [_event("obs:round", 0, 10), _event("hassbench.pass", 1, 2)]
     assert tool.profile_readings(SimpleNamespace(events=lambda: ev),
                                  {}) == {}
+
+
+def test_setup_readings_sum_each_build_span_and_its_own_time():
+    ev = [_span(1, "evaluator.build", 0.0, 1.0),
+          _span(2, "build.dense_forward", 0.0, 0.1, 1),
+          _span(3, "build.act_samples", 0.1, 0.6, 1),
+          _span(4, "build.dense_dse", 0.6, 0.7, 1),
+          _span(5, "build.weight_sort", 0.7, 0.95, 1),
+          _span(6, "search", 1.0, 2.0),
+          _span(7, "evaluator.build", 3.0, 3.5),
+          _span(8, "build.act_samples", 3.0, 3.2, 7)]
+    got = tool.setup_readings(ev)
+    assert got == pytest.approx({
+        "evaluator.build": 1500.0, "build.dense_forward": 100.0,
+        "build.act_samples": 700.0, "build.dense_dse": 100.0,
+        "build.weight_sort": 250.0, "evaluator.build_self": 350.0})
+    assert tool.setup_readings(ev[5:6]) == {}

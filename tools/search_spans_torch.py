@@ -17,7 +17,14 @@ with a ``repro_torch.obs.Tracer`` installed.
   ``dse_ms`` (``evaluate.dse`` per round) and ``dse_cold_share`` (cold
   runs over all ``DSECache`` decisions in the ``evaluate.dse`` spans).
 * The tracer's counters over the window (``tpe.kde_native`` /
-  ``tpe.kde_numpy``: which engine the TPE's KDE ran on).
+  ``tpe.kde_numpy``: which engine the TPE's KDE ran on;
+  ``pass.clip_launches``: the batched clip kernel's launches, also per
+  ``evaluate.pass`` span).
+* The set-up: the tracer is installed before ``harness.setup``, so the
+  evaluator's ``evaluator.build`` span and its ``build.*`` children are
+  read in ms (``setup_spans_ms``), beside the counters set-up left
+  (``evaluator.act_sample_elems``: activations copied to the host for the
+  clip thresholds' quantiles).
 * What the spans cost: a span's enter and exit with and without a
   recording profiler, and a bare profile range by each of PyTorch's two
   mechanisms.
@@ -43,6 +50,9 @@ NONE = "(none)"
 PASS_TREE = ("evaluate.pass", "pass.readback", "pass.build")
 #: spans under the evaluator's call
 EVALUATE_TREE = ("evaluate", "evaluate.dse") + PASS_TREE
+#: the evaluator's set-up span and its children
+BUILD_TREE = ("evaluator.build", "build.dense_forward", "build.act_samples",
+              "build.dense_dse", "build.weight_sort")
 
 Range = Tuple[float, float, str]
 
@@ -129,6 +139,19 @@ def span_readings(events: Sequence[dict]) -> Dict[str, object]:
         "dse_cold_share": 100.0 * sum(a.get("cold_runs", 0) for a in dse)
         / decided if decided else None,
     }
+
+
+def setup_readings(events: Sequence[dict]) -> Dict[str, float]:
+    """Milliseconds of each ``BUILD_TREE`` span the events hold, summed
+    over the evaluators built, and ``evaluator.build``'s own time (what its
+    children leave out)."""
+    ms = {name: 1e3 * sum(e["t1"] - e["t0"] for e in events
+                          if e["name"] == name)
+          for name in BUILD_TREE if any(e["name"] == name for e in events)}
+    if "evaluator.build" in ms:
+        ms["evaluator.build_self"] = ms["evaluator.build"] - sum(
+            v for k, v in ms.items() if k != "evaluator.build")
+    return ms
 
 
 def profile_readings(prof, label_idle: Dict[str, float]
@@ -277,9 +300,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     from hassbench import harness
     from repro_torch.obs import Tracer, use_tracer
     cell = harness.find_cell(a.workload)
-    s = harness.setup(cell, a.seed, dev, a.img_res)
     tracer = Tracer()
     with use_tracer(tracer):
+        s = harness.setup(cell, a.seed, dev, a.img_res)
+        setup_counters = dict(tracer.counters)
+        # the warm-up search's root comes before the window's
+        first = sum(e["name"] == "search" and e["parent"] is None
+                    for e in tracer.events)
         w = harness.run_window(s, a.seconds, trace=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -293,10 +320,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     if bench is not None:
         out["device_idle"] = 100.0 * (1 - bench["busy_s"] / bench["wall_s"])
         out["profile"] = profile_readings(w.profile["prof"], bench["idle"])
-    recorded = searches(tracer.events, 1, harness.RECORDED_SEARCHES)
+    recorded = searches(tracer.events, first + 1,
+                        first + harness.RECORDED_SEARCHES)
     out["spans"] = span_readings(recorded)
-    out["profiled_spans"] = span_readings(searches(tracer.events, 0, 0))
-    out["counters"] = dict(tracer.counters)
+    out["profiled_spans"] = span_readings(searches(tracer.events, first,
+                                                   first))
+    out["setup_spans_ms"] = setup_readings(tracer.events)
+    out["setup_counters"] = setup_counters
+    out["counters"] = {k: v - setup_counters.get(k, 0)
+                       for k, v in tracer.counters.items()}
+    passes = sum(e["name"] == "evaluate.pass" and e["t0"] >= w.t0
+                 for e in tracer.events)
+    if passes:
+        out["clip_launches_per_pass"] = \
+            out["counters"].get("pass.clip_launches", 0) / passes
     out["span_cost_us"] = span_cost_us(dev)
     out["spans_a_round"] = sum(e["name"] not in ("trial", "search")
                                for e in recorded) / max(
