@@ -1113,13 +1113,16 @@ class CNNEvaluator:
         measured s_a, measured tile fraction (B, L)), numpy, from one host
         copy. ``n_real`` of the B rows are proposals, the rest padding.
         Under a tracer: an ``evaluate.pass`` span, a ``pass.readback``
-        span around the blocking copy of the rows, and the counter
+        span around the blocking copy of the rows, and the counters
         ``pass.clip_launches``, the batched clip kernel's launches in the
-        pass (one per prunable layer on the card, none on the CPU)."""
+        pass (one per prunable layer on the card, none on the CPU), and
+        ``pass.conv_gemms``, its convolutions that ran as one product (one
+        per 1 x 1 stride-1 layer where B > 1, on any device)."""
         tr = get_tracer()
         with tr.span("evaluate.pass"):
             if tr.enabled:
                 clips = kernels.launch_counts()["act_clip_count_batched"]
+                gemms = kernels.product_counts()["conv_gemm"]
             host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
                     (s_w, s_a) + (() if codes is None else
                                   (codes.astype(np.int64),))]
@@ -1140,6 +1143,8 @@ class CNNEvaluator:
             if tr.enabled:
                 tr.count("pass.clip_launches", kernels.launch_counts()[
                     "act_clip_count_batched"] - clips)
+                tr.count("pass.conv_gemms", kernels.product_counts()[
+                    "conv_gemm"] - gemms)
         self.stats_passes += 1
         self.stats_forwards += n_real
         L = len(self.names)

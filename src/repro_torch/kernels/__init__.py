@@ -11,7 +11,10 @@ A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version only for a tensor that lies on the CPU. Each kernel entry has
 a launch count here, which grows by one per wrapper call that launches it
 (``_count``); a call captured into a CUDA graph counts at each replay of the
-graph (``graph.CountedGraph``), not when it is captured.
+graph (``graph.CountedGraph``), not when it is captured. The same counts
+keep one library product that is no kernel of this package: ``conv_gemm``,
+a convolution that ``models.cnn`` ran as one strided-batched product
+(``product_counts``; ``launch_counts`` leaves it out).
 """
 from __future__ import annotations
 
@@ -22,14 +25,16 @@ import torch
 #: per kernel entry: wrapper calls that launched it, and wrapper calls made
 #: while the current stream captured a CUDA graph
 _LAUNCHED = {"act_clip_count": 0, "act_clip_count_batched": 0,
-             "block_sparse_matmul": 0}
+             "block_sparse_matmul": 0, "conv_gemm": 0}
 _CAPTURED = dict.fromkeys(_LAUNCHED, 0)
+#: the library products among them
+_PRODUCTS = ("conv_gemm",)
 
 
-def _count(name: str) -> None:
+def _count(name: str, cuda: bool = True) -> None:
     """Called by a wrapper right after it launched (or, under capture,
-    recorded) its kernel."""
-    if torch.cuda.is_current_stream_capturing():
+    recorded) its kernel; ``cuda=False`` for a call that ran on the CPU."""
+    if cuda and torch.cuda.is_current_stream_capturing():
         _CAPTURED[name] += 1
     else:
         _LAUNCHED[name] += 1
@@ -41,7 +46,12 @@ def launch_counts() -> Dict[str, int]:
     its ticket word, then the kernel); one ``block_sparse_matmul`` call is
     one launch, or two when its work plan splits K (the product, then the
     ordered reduction)."""
-    return dict(_LAUNCHED)
+    return {k: v for k, v in _LAUNCHED.items() if k not in _PRODUCTS}
+
+
+def product_counts() -> Dict[str, int]:
+    """Calls of each library product counted here, on any device."""
+    return {k: _LAUNCHED[k] for k in _PRODUCTS}
 
 
 def reset_launch_counts() -> None:

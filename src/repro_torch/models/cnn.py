@@ -14,7 +14,9 @@ This mirrors the dataflow-graph view of Fig. 3 (left) in the paper.
 Layouts at the public boundary are those of the JAX package: images and every
 layer output NHWC, convolution weights HWIO ``(k, k, cin, cout)`` (depthwise
 ``(k, k, 1, cout)``), linear weights ``(cin, cout)``. The convolutions
-themselves run on channels-first *views* of those tensors.
+run on channels-first *views* of those tensors, but for the batched
+forward's 1 x 1 stride-1 layers: a product on the NHWC tensors themselves
+(``_conv_gemm``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import act_clip, dense_init, softmax_xent
@@ -284,6 +287,36 @@ def _conv(x, w, stride: int, pad: int, groups: int):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def is_gemm(s: LayerSpec, groups: int) -> bool:
+    """A convolution that ``forward_batched`` runs through ``_conv_gemm``:
+    1 x 1, stride 1, over more than one proposal. On the card the
+    product of one group sums the deep layers with a wide cin (M = N * H
+    * W of 392 or 1,568, cin 480 to 2,048) in another order than the cuDNN
+    convolution of one proposal, which the set-up's dense forward (the
+    clip thresholds' quantiles) and the shape-1 program keep; over B = 8
+    groups it gives that convolution's result bit for bit, on every
+    layer of ResNet-50 and MobileNetV3-L."""
+    return s.kind == "conv" and s.k == 1 and s.stride == 1 and groups > 1
+
+
+def _conv_gemm(x, w):
+    """A 1 x 1 stride-1 convolution of B groups as one strided-batched
+    product: NHWC x (N, H, W, B * cin), w (B, cin, cout) -> NHWC (N, H, W,
+    B * cout). Over the M = N * H * W pixels, group b reads the (M, cin)
+    view of x at column b * cin (row stride B * cin) and writes the (M,
+    cout) view of the output at column b * cout (row stride B * cout): the
+    product writes the NHWC output in place, with no transpose and no copy
+    of x, w or y (an ``out=`` product has no backward: the batched forward
+    runs without autograd). Counted as ``conv_gemm`` in
+    ``kernels.product_counts``."""
+    B, cin, cout = w.shape
+    y = x.new_empty(x.shape[:-1] + (B * cout,))
+    torch.bmm(x.reshape(-1, B, cin).transpose(0, 1), w,
+              out=y.view(-1, B, cout).transpose(0, 1))
+    kernels._count("conv_gemm", x.is_cuda)
+    return y
+
+
 def forward(cfg: ModelConfig, params, images, *, sparsity=None,
             collect_stats=False, return_intermediates=False):
     """images: (B, H, W, 3). sparsity: {layer_name: tau_a}.
@@ -355,9 +388,11 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
     float32 clip thresholds on the images' device (a tau for a layer that
     is not prunable clips its input without counting). Every activation
     holds the B proposals' channels side by side in its last dim, NHWC with
-    B * C channels: a convolution is one grouped convolution (``groups=B``,
-    B * cout for ``dwconv``), a linear layer one batched product, SE,
-    pooling and residual adds act per channel and so per proposal, and a
+    B * C channels: a 1 x 1 stride-1 convolution is one strided-batched
+    product on those channels (``_conv_gemm``, where B > 1: ``is_gemm``),
+    any other convolution one grouped convolution (``groups=B``, B * cout
+    for ``dwconv``), a linear layer one batched product, SE, pooling and
+    residual adds act per channel and so per proposal, and a
     prunable layer's clip and zero count is one ``ops.act_clip_batched``
     call. Returns (logits (N, B, classes), {layer: (B,) input zero
     fraction}).
@@ -377,14 +412,17 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
         elif s.name in taus:
             x = act_clip(x, taus[s.name].repeat_interleave(x.shape[-1] // B))
         if s.kind in ("conv", "dwconv"):
-            if s.kind == "conv":    # (B, k, k, cin, cout) -> HWIO, B groups
-                w = weights[s.name].permute(1, 2, 3, 0, 4).reshape(
-                    s.k, s.k, s.cin, B * s.cout)
-                groups = B
+            if is_gemm(s, B):
+                x = _conv_gemm(x, weights[s.name].reshape(B, s.cin, s.cout))
             else:
-                w = p["w"].repeat(1, 1, 1, B)
-                groups = B * s.cout
-            x = _conv(x, w, s.stride, (s.k - 1) // 2, groups)
+                if s.kind == "conv":    # (B, k, k, cin, cout) -> HWIO
+                    w = weights[s.name].permute(1, 2, 3, 0, 4).reshape(
+                        s.k, s.k, s.cin, B * s.cout)
+                    groups = B
+                else:
+                    w = p["w"].repeat(1, 1, 1, B)
+                    groups = B * s.cout
+                x = _conv(x, w, s.stride, (s.k - 1) // 2, groups)
             x = _act(x + p["b"].repeat(B), s.act)
         elif s.kind == "pool":
             (t, b), (l, r) = (_same_pads(x.shape[1], s.k, s.stride),

@@ -429,7 +429,7 @@ def test_cuda_replays_count_their_launches(cuda_evaluator):
                                        "block_sparse_matmul": 0}
     graph = ev._graphs[(False, 3)][0]
     assert graph.held == {"act_clip_count": 0, "act_clip_count_batched": L,
-                          "block_sparse_matmul": 0}
+                          "block_sparse_matmul": 0, "conv_gemm": 0}
 
 
 @pytest.mark.cuda

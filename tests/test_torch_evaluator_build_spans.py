@@ -2,7 +2,8 @@
 ``evaluator.build`` span with its four ``build.*`` children, each once;
 the counter ``evaluator.act_sample_elems`` at the elements of every
 prunable layer's input over the images; ``pass.clip_launches`` at the
-batched clip's launches in a pass; and without a tracer the same set-up
+batched clip's launches in a pass and ``pass.conv_gemms`` at its 1 x 1
+stride-1 convolutions; and without a tracer the same set-up
 bits."""
 import numpy as np
 import pytest
@@ -74,15 +75,18 @@ def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
         traced, monkeypatch):
     """On the CPU the clip runs its plain version and launches nothing;
     with each call counted as the card's wrapper counts a launch, a pass
-    counts one per prunable layer."""
-    _, _, ev, _ = traced
+    counts one per prunable layer. ``pass.conv_gemms`` counts the 1 x 1
+    stride-1 layers of a pass of more than one proposal, whose product
+    runs on any device."""
+    arch, _, ev, _ = traced
     L = len(ev.prunable)
+    G = {"resnet18": 0, "resnet50": 33}[arch]
     rng = np.random.default_rng(0)
     s = rng.uniform(0, 0.9, (2, L)).astype(np.float32)
     tracer = Tracer()
     with use_tracer(tracer):
         ev._pass(s, s, None, 2)
-    assert tracer.counters == {"pass.clip_launches": 0}
+    assert tracer.counters == {"pass.clip_launches": 0, "pass.conv_gemms": G}
     plain = kernels.ops.act_clip_batched
     # the process's own launch count is put back after the test
     monkeypatch.setitem(kernels._LAUNCHED, "act_clip_count_batched",
@@ -96,6 +100,8 @@ def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
     with use_tracer(tracer):
         ev._pass(s, s, None, 2)
         ev._pass(s[:1], s[:1], None, 1)
-    assert tracer.counters == {"pass.clip_launches": 2 * L}
+    assert tracer.counters == {"pass.clip_launches": 2 * L,
+                               "pass.conv_gemms": 2 * G}
     ev._pass(s, s, None, 2)
-    assert tracer.counters == {"pass.clip_launches": 2 * L}
+    assert tracer.counters == {"pass.clip_launches": 2 * L,
+                               "pass.conv_gemms": 2 * G}

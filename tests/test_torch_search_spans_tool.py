@@ -183,3 +183,12 @@ def test_setup_readings_sum_each_build_span_and_its_own_time():
         "build.act_samples": 700.0, "build.dense_dse": 100.0,
         "build.weight_sort": 250.0, "evaluator.build_self": 350.0})
     assert tool.setup_readings(ev[5:6]) == {}
+
+
+def test_device_ops_per_round_sum_names_cut_alike_longest_first():
+    long = "k" * 130
+    got = tool.device_ops({"copy": [0.002, 4], long + "a": [0.01, 2],
+                           long + "b": [0.02, 2]}, 2)
+    assert list(got) == ["k" * 120, "copy"]
+    assert got["k" * 120] == pytest.approx([15.0, 2.0])
+    assert got["copy"] == pytest.approx([1.0, 2.0])

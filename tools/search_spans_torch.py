@@ -18,8 +18,11 @@ with a ``repro_torch.obs.Tracer`` installed.
   runs over all ``DSECache`` decisions in the ``evaluate.dse`` spans).
 * The tracer's counters over the window (``tpe.kde_native`` /
   ``tpe.kde_numpy``: which engine the TPE's KDE ran on;
-  ``pass.clip_launches``: the batched clip kernel's launches, also per
-  ``evaluate.pass`` span).
+  ``pass.clip_launches``: the batched clip kernel's launches;
+  ``pass.conv_gemms``: the pass's convolutions that ran as one product;
+  both also per ``evaluate.pass`` span).
+* Every device operation of the profiled search by name, ms and calls a
+  round (``device_ops_ms_per_round``).
 * The set-up: the tracer is installed before ``harness.setup``, so the
   evaluator's ``evaluator.build`` span and its ``build.*`` children are
   read in ms (``setup_spans_ms``), beside the counters set-up left
@@ -152,6 +155,19 @@ def setup_readings(events: Sequence[dict]) -> Dict[str, float]:
         ms["evaluator.build_self"] = ms["evaluator.build"] - sum(
             v for k, v in ms.items() if k != "evaluator.build")
     return ms
+
+
+def device_ops(kernels: Dict[str, list], rounds: int
+               ) -> Dict[str, List[float]]:
+    """Each device operation of the profiled search (its name cut to 120
+    characters; names that agree that far are summed): [ms, calls] a
+    round, the longest first."""
+    ops: Dict[str, List[float]] = {}
+    for name, (s, calls) in kernels.items():
+        t = ops.setdefault(name[:120], [0.0, 0.0])
+        t[0] += 1e3 * s / max(rounds, 1)
+        t[1] += calls / max(rounds, 1)
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1][0]))
 
 
 def profile_readings(prof, label_idle: Dict[str, float]
@@ -320,6 +336,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if bench is not None:
         out["device_idle"] = 100.0 * (1 - bench["busy_s"] / bench["wall_s"])
         out["profile"] = profile_readings(w.profile["prof"], bench["idle"])
+        out["device_ops_ms_per_round"] = device_ops(
+            bench["kernels"], out["profile"].get("obs_rounds", 0))
     recorded = searches(tracer.events, first + 1,
                         first + harness.RECORDED_SEARCHES)
     out["spans"] = span_readings(recorded)
@@ -334,6 +352,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if passes:
         out["clip_launches_per_pass"] = \
             out["counters"].get("pass.clip_launches", 0) / passes
+        out["conv_gemms_per_pass"] = \
+            out["counters"].get("pass.conv_gemms", 0) / passes
     out["span_cost_us"] = span_cost_us(dev)
     out["spans_a_round"] = sum(e["name"] not in ("trial", "search")
                                for e in recorded) / max(
