@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field, replace
 from itertools import repeat
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -77,11 +77,6 @@ class ParetoFrontier:
         None when even the cheapest point exceeds the budget."""
         k = int(np.searchsorted(self.res, budget, side="right")) - 1
         return k if k >= 0 else None
-
-    def select(self, score: Callable[[np.ndarray, np.ndarray], np.ndarray]) -> int:
-        """Argmax of a vectorized ``score(res, thr)`` over frontier points —
-        how Eq. 6 consumers pick a trade-off point without re-searching."""
-        return int(np.argmax(score(self.res, self.thr)))
 
     def materialize(self, k: int) -> List[DesignPoint]:
         return _designs_from(self.spe[k], self.n[k])

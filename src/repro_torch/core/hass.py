@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import InitVar, dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,8 +24,8 @@ from repro_torch.core.dse import (DSECache, ParetoFrontier, engine_dispatch_stat
                             incremental_dse)
 from repro_torch.obs.trace import get_tracer
 from repro_torch.core.perf_model import (FPGAModel, HardwareModel, LayerCost,
-                                   TPUModel, lm_layer_costs, pair_sparsity,
-                                   tile_quantize_sparsity)
+                                   LayerVectors, TPUModel, lm_layer_costs,
+                                   pair_sparsity, tile_quantize_sparsity)
 from repro_torch.core.tpe import TPE, kde_engine_stats
 
 #: ``DSECache`` counters whose change an ``evaluate.dse`` span carries
@@ -109,19 +109,14 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
     (+ [pattern_0..pattern_{P-1}] categorical dims when the evaluator
     exposes ``n_pattern_dims > 0`` — DESIGN.md §16).
 
-    When the evaluator exposes a ``lambdas`` attribute (``CNNEvaluator``), a
-    hardware-aware search installs a copy of its own ``lambdas`` for the
-    duration of the search (restored afterwards) so that frontier-point
-    selection and trial scoring share one set of Eq. 6 weights.
-
     ``batch_size`` switches to the batched frontier (DESIGN.md §8): each
     round asks the TPE for a batch of proposals and scores them through
     ``evaluate.evaluate_batch(xs)`` when the evaluator provides it (one
     batched DSE for the whole round instead of one per trial), falling back
     to per-proposal ``evaluate(x)``. Size-1 rounds always use plain
     ``evaluate``, so ``batch_size=1`` replays the serial search
-    trial-for-trial at a fixed seed for ANY evaluator; ``None`` keeps the
-    serial loop.
+    trial-for-trial at a fixed seed for ANY evaluator; ``None`` runs the
+    serial search, the same loop in rounds of one.
 
     ``liar`` selects the batch proposal protocol (``TPE.ask_batch``):
     ``"min"`` (default) runs constant-liar parallel TPE — batch members
@@ -143,10 +138,10 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
     engine-dispatch counter deltas (the DSE's and the TPE KDE's), per-phase
     timings — plus run header/footer (DESIGN.md §18). Spans land in the
     process-global tracer when one is installed
-    (``repro_torch.obs.use_tracer``). With neither, the loop below is the
-    literal uninstrumented seed path; with either, instrumentation only
-    reads clocks and counters, so the trial transcript stays bit-identical
-    in every state (gated in ``benchmarks/obs_bench.py``).
+    (``repro_torch.obs.use_tracer``). With neither, the loop reads no clock
+    and no counter; with either, instrumentation only reads clocks and
+    counters, so the trial transcript stays bit-identical in every state
+    (gated in ``benchmarks/obs_bench.py``).
     """
     lambdas = Lambdas() if lambdas is None else lambdas
     dim = n_layers * (2 if include_act else 1)
@@ -185,202 +180,210 @@ def hass_search(evaluate: Callable[[np.ndarray], Dict[str, float]],
             result.best_score, result.best_x, result.best_metrics = score, x, m
         return score
 
-    # align the evaluator's frontier-point selection with this search's
-    # Eq. 6 weights for the duration of the search (a COPY — never alias the
-    # shared default-arg instance — and restored afterwards, so a later
-    # software-only baseline on the same evaluator scores at the evaluator's
-    # own trade-off point)
-    sync_lam = hardware_aware and hasattr(evaluate, "lambdas")
-    old_lam = evaluate.lambdas if sync_lam else None
-    if sync_lam:
-        evaluate.lambdas = replace(lambdas)
-
-    # observability (DESIGN.md §18). ``obs`` off keeps the literal seed
-    # serial loop below and skips the batched loop's clock reads; on, each
-    # phase is timed and counter deltas snapshotted — reads only, never a
-    # float the search computes. An installed tracer gets nested spans:
-    # ``search`` > ``round`` (a serial search: ``trial``) > ``propose``
-    # (the ask), ``evaluate`` (the evaluator's call), ``tell`` (the tell
+    # observability (DESIGN.md §18): each phase is timed and counter deltas
+    # snapshotted — reads only, never a float the search computes. An
+    # installed tracer gets nested spans: ``search`` > ``round`` (a serial
+    # search or the ``x0`` trial: ``trial``) > ``propose`` (the ask; none
+    # for ``x0``), ``evaluate`` (the evaluator's call), ``tell`` (the tell
     # and scoring) and ``record`` (the recorder's write, in no phase); a
     # batched round adds one ``trial`` span per member over the round's
-    # window. The default tracer's ``span`` is a shared no-op.
+    # window. The default tracer's ``span`` is a shared no-op, and with no
+    # recorder either ``clk`` reads no clock.
     tr = get_tracer()
-    obs = tr.enabled or recorder is not None
-    clk = tr.now if tr.enabled else time.perf_counter
+    clk = tr.now if tr.enabled else \
+        time.perf_counter if recorder is not None else (lambda: 0.0)
     cache = getattr(evaluate, "dse_cache", None)
-
+    eval_batch = getattr(evaluate, "evaluate_batch", None)
     kde0 = kde_engine_stats()
 
     def _snap():
         return (dict(cache.stats()) if cache is not None else {},
                 {**engine_dispatch_stats(), **kde_engine_stats()})
 
-    def _observe(k, t0, t1, t2, t3, snap, first=True, round_size=1):
-        """Write trial ``result.trials[k]`` to the recorder. Batched rounds
-        pass the whole round's window to every member but attribute the
-        shared phase time and counter deltas to the FIRST trial only
-        (zeros elsewhere), so footer totals stay the sum of per-trial
-        records."""
-        if recorder is None:
-            return
+    def _observe(base, k, t0, t1, t2, t3, snap):
+        """Write round ``result.trials[base:base + k]`` to the recorder.
+        Every member gets the round's size, but the shared phase time and
+        counter deltas go to the FIRST trial only (zeros elsewhere), so
+        footer totals stay the sum of per-trial records."""
         c1, e1 = _snap()
-        zero = {"propose": 0.0, "evaluate": 0.0, "tell": 0.0}
-        t = result.trials[k]
-        recorder.trial(
-            index=k, x=t.x, score=t.score, metrics=t.metrics,
-            cache={key: c1[key] - snap[0].get(key, 0) for key in c1}
-            if first else {},
-            engine={key: e1[key] - snap[1].get(key, 0) for key in e1}
-            if first else {},
-            phases={"propose": t1 - t0, "evaluate": t2 - t1,
-                    "tell": t3 - t2} if first else zero,
-            round_size=round_size)
+        for j in range(k):
+            t = result.trials[base + j]
+            recorder.trial(
+                index=base + j, x=t.x, score=t.score, metrics=t.metrics,
+                cache={key: c1[key] - snap[0].get(key, 0) for key in c1}
+                if j == 0 else {},
+                engine={key: e1[key] - snap[1].get(key, 0) for key in e1}
+                if j == 0 else {},
+                phases={"propose": t1 - t0, "evaluate": t2 - t1,
+                        "tell": t3 - t2} if j == 0 else
+                {"propose": 0.0, "evaluate": 0.0, "tell": 0.0},
+                round_size=k)
 
-    def _finish_obs():
-        if tr.enabled:
-            tr.count("search.trials", len(result.trials))
-            for key, n in kde_engine_stats().items():
-                tr.count(key, n - kde0[key])
-        if recorder is not None:
-            recorder.footer(best_score=result.best_score)
-
-    if obs and recorder is not None:
+    if batch_size is not None and batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if recorder is not None:
         recorder.header(
             "hass_search", n_layers=n_layers, iters=iters, dim=dim,
             seed=seed, hardware_aware=hardware_aware, s_max=s_max,
             include_act=include_act, batch_size=batch_size, liar=liar,
             evaluator=type(evaluate).__name__)
-    try:
-        with tr.span("search"):
-            n0 = 0
-            if x0 is not None:
-                xa = np.asarray(x0, dtype=np.float64).copy()
-                if len(xa) != dim:
-                    raise ValueError(
-                        f"x0 has {len(xa)} dims, search space has {dim}")
-                with tr.span("trial", i=0):
-                    if obs:
-                        snap = _snap()
-                        t0 = clk()
-                    with tr.span("evaluate"):
-                        m = dict(evaluate(xa))
-                    with tr.span("tell"):
-                        opt.tell(xa, record(xa, m))
-                    if obs:
-                        t3 = clk()
-                        with tr.span("record"):
-                            _observe(0, t0, t0, t3, t3, snap)
-                n0 = 1
-            if batch_size is None:
-                if not obs:
-                    for it in range(max(iters - n0, 0)):
-                        x = opt.ask()
-                        m = dict(evaluate(x))
-                        opt.tell(x, record(x, m))
-                    return result
-                for it in range(max(iters - n0, 0)):
-                    with tr.span("trial", i=len(result.trials)):
-                        snap = _snap()
-                        t0 = clk()
-                        with tr.span("propose"):
-                            x = opt.ask()
-                        t1 = clk()
-                        with tr.span("evaluate"):
-                            m = dict(evaluate(x))
-                        t2 = clk()
-                        with tr.span("tell"):
-                            opt.tell(x, record(x, m))
-                        t3 = clk()
-                        with tr.span("record"):
-                            _observe(len(result.trials) - 1, t0, t1, t2, t3,
-                                     snap)
-                _finish_obs()
-                return result
-
-            if batch_size < 1:
+    with tr.span("search"):
+        given = None
+        if x0 is not None:
+            given = np.asarray(x0, dtype=np.float64).copy()
+            if len(given) != dim:
                 raise ValueError(
-                    f"batch_size must be >= 1, got {batch_size}")
-            eval_batch = getattr(evaluate, "evaluate_batch", None)
-            done = n0
-            while done < iters:
-                k = min(batch_size, iters - done)
-                with tr.span("round"):
-                    if obs:
-                        snap = _snap()
-                        t0 = clk()
+                    f"x0 has {len(given)} dims, search space has {dim}")
+        # one round per pass: the ``x0`` trial is a round of one whose
+        # proposal is given, a serial search runs rounds of one
+        while given is not None or len(result.trials) < iters:
+            n = len(result.trials)
+            rnd = given is None and batch_size is not None
+            k = min(batch_size, iters - n) if rnd else 1
+            with tr.span("round") if rnd else tr.span("trial", i=n):
+                snap = _snap() if recorder is not None else None
+                t0 = t1 = clk()
+                if given is not None:
+                    xs, given = [given], None
+                else:
                     with tr.span("propose"):
                         xs = opt.ask_batch(k, liar=liar)
-                    if obs:
-                        t1 = clk()
-                    with tr.span("evaluate"):
-                        ms = [dict(m) for m in eval_batch(xs)] \
-                            if eval_batch is not None and k > 1 \
-                            else [dict(evaluate(x)) for x in xs]
-                    if obs:
-                        t2 = clk()
-                    with tr.span("tell"):
-                        opt.tell_batch(xs, [record(x, m)
-                                            for x, m in zip(xs, ms)])
-                    if obs:
-                        t3 = clk()
-                        base = len(result.trials) - k
-                        with tr.span("record"):
-                            for j in range(k):
-                                _observe(base + j, t0, t1, t2, t3, snap,
-                                         first=(j == 0), round_size=k)
-                        for j in range(k):
-                            tr.add_span("trial", t0, t3, i=base + j)
-                done += k
-            if obs:
-                _finish_obs()
-            return result
-    finally:
-        if sync_lam:
-            evaluate.lambdas = old_lam
+                    t1 = clk()
+                with tr.span("evaluate"):
+                    ms = [dict(m) for m in eval_batch(xs)] \
+                        if eval_batch is not None and k > 1 \
+                        else [dict(evaluate(x)) for x in xs]
+                t2 = clk()
+                with tr.span("tell"):
+                    opt.tell_batch(xs, [record(x, m)
+                                        for x, m in zip(xs, ms)])
+                t3 = clk()
+                with tr.span("record"):
+                    if recorder is not None:
+                        _observe(n, k, t0, t1, t2, t3, snap)
+                if rnd:
+                    for j in range(k):
+                        tr.add_span("trial", t0, t3, i=n + j)
+    if tr.enabled:
+        tr.count("search.trials", len(result.trials))
+        for key, v in kde_engine_stats().items():
+            tr.count(key, v - kde0[key])
+    if recorder is not None:
+        recorder.footer(best_score=result.best_score)
+    return result
 
 
-def frontier_hw_metrics(ev, f: ParetoFrontier) -> Dict[str, float]:
+#: deployment budgets, as fractions of the DSE budget, that Eq. 6's
+#: hardware terms average over (``frontier_hw_metrics``)
+BUDGET_FRACS = (0.25, 0.5, 0.75, 1.0)
+
+
+def frontier_hw_metrics(ht: "HardwareTerms",
+                        f: ParetoFrontier) -> Dict[str, float]:
     """Eq. 6 hardware terms read off a DSE frontier, shared by both
-    evaluators (DESIGN.md §12).
-
-    ``ev.frontier_mode == "point"``: the pre-PR-4 semantics — score at the
-    single frontier point maximizing λthr·thr_norm − λdsp·dsp.
-
-    ``"budgets"``: per-budget scalarization of the WHOLE frontier. For each
-    deployment budget ``frac·budget`` (``ev.budget_fracs``) take the point
-    actually deployable there (``best_under``) and report the MEAN of the
-    per-budget thr_norm and of the per-budget resource fraction
-    ``res/budget`` (utilization of the AVAILABLE device, the paper's f_dsp
-    — NOT of the frac slice, where every greedy design saturates and the
-    λdsp term stops discriminating between proposals). Eq. 6 is linear in
-    (thr_norm, dsp), so the search score becomes the mean of the
-    per-budget Eq. 6 hardware scores — a proposal wins by being good
-    across the budget sweep, not at one cherry-picked trade-off (closes
-    the ROADMAP frontier-aware-TPE item). ``thr``/``eff`` stay the
-    full-budget point's values for reporting.
+    evaluators (DESIGN.md §12): a per-budget scalarization of the WHOLE
+    frontier. For each deployment budget ``frac·budget``
+    (``BUDGET_FRACS``) take the point actually deployable there
+    (``best_under``) and report the MEAN of the per-budget thr_norm and of
+    the per-budget resource fraction ``res/budget`` (utilization of the
+    AVAILABLE device, the paper's f_dsp — NOT of the frac slice, where every
+    greedy design saturates and the λdsp term stops discriminating between
+    proposals). Eq. 6 is linear in (thr_norm, dsp), so the search score
+    becomes the mean of the per-budget Eq. 6 hardware scores — a proposal
+    wins by being good across the budget sweep, not at one cherry-picked
+    trade-off. ``thr``/``eff`` stay the full-budget point's values for
+    reporting.
     """
-    thr_pts, thr_norm_pts, dsp_pts = ev._hw_terms(f.res, f.thr)
-    if ev.frontier_mode == "point":
-        k = f.select(ev._eq6_hw_score)
-        return {"thr": float(thr_pts[k]),
-                "thr_norm": float(thr_norm_pts[k]),
-                "dsp": float(dsp_pts[k]),
-                "eff": float(thr_pts[k]) / max(float(f.res[k]), 1e-9)}
-    if ev.frontier_mode != "budgets":
-        raise ValueError(f"unknown frontier_mode {ev.frontier_mode!r}")
+    thr_pts, thr_norm_pts, dsp_pts = ht._hw_terms(f.res, f.thr)
     tn = []
     dp = []
-    for frac in ev.budget_fracs:
-        k = f.best_under(frac * ev.budget)
+    for frac in BUDGET_FRACS:
+        k = f.best_under(frac * ht.budget)
         k = 0 if k is None else k       # infeasible budget: the resource-
         tn.append(float(thr_norm_pts[k]))   # minimal design still runs
         dp.append(float(dsp_pts[k]))
-    k = f.best_under(ev.budget)
+    k = f.best_under(ht.budget)
     k = 0 if k is None else k
     return {"thr": float(thr_pts[k]),
             "thr_norm": float(np.mean(tn)),
             "dsp": float(np.mean(dp)),
             "eff": float(thr_pts[k]) / max(float(f.res[k]), 1e-9)}
+
+
+@dataclass
+class HardwareTerms:
+    """The hardware half of a trial, one per evaluator: the DSE of a
+    realized stack under ``budget`` (through the evaluator's ``DSECache``
+    when it has one, ``None`` when its ``accel`` is off) and Eq. 6's
+    hardware terms read off its frontier. ``dense_thr``, the unit of
+    ``thr_norm``, comes from one DSE of the ``dense`` stack.
+    ``dse_engine`` pins the greedy engine ("flat" reproduces seed-path
+    wall-clock); ``batch_dse=False`` pins a batch to one DSE a row."""
+    hw: HardwareModel
+    budget: float
+    dse_iters: int
+    dse_engine: str
+    batch_dse: bool
+    cache: Optional[DSECache]
+    dense: InitVar[Sequence[LayerCost]]
+
+    def __post_init__(self, dense):
+        self.dense_thr = incremental_dse(
+            dense, self.hw, self.budget,
+            max_iters=self.dse_iters).throughput * self.hw.freq
+
+    def dse(self, row):
+        """One row's DSE: a ``LayerVectors`` row through the cache's
+        ``dse_vec``; a ``LayerCost`` stack through the cache's ``dse`` or,
+        with no cache, a fresh ``incremental_dse``."""
+        kw = dict(max_iters=self.dse_iters, engine=self.dse_engine)
+        if isinstance(row, LayerVectors):
+            return self.cache.dse_vec(row, self.hw, self.budget, **kw)
+        if self.cache is not None:
+            return self.cache.dse(row, self.hw, self.budget, **kw)
+        return incremental_dse(row, self.hw, self.budget, **kw)
+
+    def batched(self, n: int) -> bool:
+        """Whether ``n`` rows go through ``dse_batch``: a non-``auto``
+        engine pins a serial engine, so it keeps one DSE a row."""
+        return n > 1 and self.cache is not None and self.batch_dse \
+            and self.dse_engine == "auto"
+
+    def dse_batch(self, rows: Sequence[LayerVectors]) -> List:
+        """``[self.dse(row) for row in rows]``, bit for bit (batch-engine
+        exactness + certificate soundness, property-tested), with every
+        cold row of a group advancing in ONE batched-engine invocation
+        (DESIGN.md §15). Rows are grouped by their decode ``t_scale``
+        vector in first-seen order, one ``dse_vec_batch`` a group, because
+        ``t_scale`` is a template constant, not a per-row input; rows are
+        independent, so grouping preserves each row's result exactly, and
+        patterned groups take the batch dispatcher's lockstep route
+        (DESIGN.md §16)."""
+        groups: Dict[Optional[bytes], List[int]] = {}
+        for b, lv in enumerate(rows):
+            key = None if lv.t_scale is None else lv.t_scale.tobytes()
+            groups.setdefault(key, []).append(b)
+        out: List = [None] * len(rows)
+        for grp in groups.values():
+            S = np.stack([rows[b].s_eff for b in grp])
+            for b, r in zip(grp, self.cache.dse_vec_batch(
+                    rows[grp[0]], self.hw, self.budget, S,
+                    max_iters=self.dse_iters)):
+                out[b] = r
+        return out
+
+    def _hw_terms(self, res: np.ndarray, thr: np.ndarray):
+        """(thr in samples/s, thr_norm, dsp) for frontier points, vectorized.
+        thr_norm is the log-compressed speedup vs the dense-stack DSE: Eq.
+        6's lambda-normalization heuristic keeps the hardware terms
+        commensurate with acc in [0, 1]; dsp is the resource fraction."""
+        thr_s = thr * self.hw.freq
+        thr_norm = np.log2(1.0 + thr_s / max(self.dense_thr, 1e-9)) / 4.0
+        return thr_s, thr_norm, res / max(self.budget, 1e-9)
+
+    def terms(self, dse) -> Dict[str, float]:
+        """Eq. 6's hardware terms of one DSE result, off its frontier."""
+        return frontier_hw_metrics(self, dse.frontier)
 
 
 # --------------------------------------------------------------------- #
@@ -435,8 +438,8 @@ class LMEvaluator:
       * ``spa``  — weight-count-weighted mean of (s_w + s_a)/2 (the CNN
         evaluator's convention).
       * ``thr``/``thr_norm``/``dsp``/``eff`` — exactly the CNN path: ONE
-        ``incremental_dse`` over the sparse stack, Eq. 6-optimal frontier
-        point (λthr·thr_norm − λdsp·dsp) under the budget.
+        DSE over the sparse stack under the budget, Eq. 6's hardware terms
+        read off its frontier (``HardwareTerms``).
 
     On a ``TPUModel`` the searched target is realized tile-granularly:
     ``s_w`` snaps to the largest achievable whole-tile fraction
@@ -456,11 +459,8 @@ class LMEvaluator:
     (DESIGN.md §12): proposals are realized as a vectorized ``s_eff`` swap
     on one ``LayerVectors`` template (no per-call LayerCost churn) and the
     DSE goes through a per-evaluator ``DSECache`` — bit-identical metrics
-    to ``accel=False`` (property-tested). ``frontier_mode`` selects Eq. 6
-    frontier scoring (``frontier_hw_metrics``): ``"budgets"`` (default)
-    scalarizes the whole frontier over ``budget_fracs`` deployment budgets;
-    ``"point"`` is the single-point pre-PR-4 semantics. ``dse_engine``
-    pins the greedy engine ("flat" reproduces seed-path wall-clock).
+    to ``accel=False`` (property-tested). ``dse_engine`` pins the greedy
+    engine ("flat" reproduces seed-path wall-clock).
     """
     cfg: object
     hw: HardwareModel
@@ -470,10 +470,7 @@ class LMEvaluator:
     tie: str = "kind"             # kind | none
     alpha: float = 4.0            # acc-proxy decay per unit energy removed
     act_weight: float = 0.5       # relative acc cost of activation clipping
-    lambdas: Lambdas = field(default_factory=Lambdas)
     accel: bool = True            # DSECache + vectorized stack realization
-    frontier_mode: str = "budgets"    # Eq. 6 frontier scoring (see
-    budget_fracs: tuple = (0.25, 0.5, 0.75, 1.0)   # frontier_hw_metrics)
     dse_engine: str = "auto"      # greedy engine (flat pins seed behavior)
     batch_dse: bool = True        # proposal-batched DSE in evaluate_batch
     #                               (False pins the serial per-proposal loop)
@@ -511,14 +508,13 @@ class LMEvaluator:
         self.n_search = len(kinds)
         self.tiled = isinstance(self.hw, TPUModel)
         self._energy = _gaussian_energy_curve()
+        self._egrid = np.linspace(0.0, 1.0, len(self._energy))
         wc = np.array([l.weight_count for l in self.prunable], dtype=np.float64)
         self._wfrac = wc / max(wc.sum(), 1.0)
         # vectorized realization state (DESIGN.md §12): the workload
         # constants of the stack never change across proposals, so one
         # LayerVectors template + a per-proposal s_eff swap replaces
         # rebuilding the LayerCost list and re-deriving every constant
-        self.dse_cache = DSECache(materialize_designs=False) \
-            if self.accel else None
         self._lv0 = self.hw.layer_vectors(self.layers)
         self._prunable_idx = np.array(
             [i for i, l in enumerate(self.layers) if l.prunable], np.int64)
@@ -541,10 +537,12 @@ class LMEvaluator:
                 {k: float(v) for k, v in self.pattern_costs.items()})
         if self.patterns is not None:
             self._nm_s_grid, self._nm_curve = _nm_energy_curve()
-            self._egrid = np.linspace(0.0, 1.0, len(self._energy))
-        dense = incremental_dse(self.layers, self.hw, self.budget,
-                                max_iters=self.dse_iters)
-        self.dense_thr = dense.throughput * self.hw.freq
+        self.hardware = HardwareTerms(
+            self.hw, self.budget, self.dse_iters, self.dse_engine,
+            self.batch_dse, dense=self.layers,
+            cache=DSECache(materialize_designs=False) if self.accel else None)
+        self.dse_cache = self.hardware.cache
+        self.dense_thr = self.hardware.dense_thr
 
     # ------------------------------------------------------------------ #
     def _split(self, x: np.ndarray):
@@ -713,136 +711,69 @@ class LMEvaluator:
                 out.append(LayerCost(**{**l.__dict__, "s_w": sw, "s_a": sa}))
         return out
 
-    def _hw_terms(self, res: np.ndarray, thr: np.ndarray):
-        """Identical shape to ``CNNEvaluator._hw_terms`` (log-compressed
-        speedup vs the dense-stack DSE; dsp = resource fraction)."""
-        thr_s = thr * self.hw.freq
-        thr_norm = np.log2(1.0 + thr_s / max(self.dense_thr, 1e-9)) / 4.0
-        return thr_s, thr_norm, res / max(self.budget, 1e-9)
-
-    def _eq6_hw_score(self, res: np.ndarray, thr: np.ndarray) -> np.ndarray:
-        _, thr_norm, dsp = self._hw_terms(res, thr)
-        return self.lambdas.thr * thr_norm - self.lambdas.dsp * dsp
-
-    def __call__(self, x: np.ndarray) -> Dict[str, float]:
+    def _row(self, x: np.ndarray):
+        """One proposal -> (realized per-prunable s_w, s_a, weight energy
+        removed, the ``meas`` term or ``None``, its DSE row: a
+        ``LayerVectors`` row with ``accel``, the sparse ``LayerCost`` stack
+        without). With a pattern axis the DSE row threads the decode
+        ``t_scale`` (``LayerVectors.t_scale`` — identical Eq. 1 mapping in
+        every engine) and the energies are per pattern; ``meas`` — the
+        measured relative cycle estimate sum_l wfrac_l * c_l * (1 -
+        s_eff_l) — is reported ONLY when ``pattern_costs`` was provided, so
+        a cost-less evaluator emits exactly the seed metric dict (Eq. 6
+        term gating, ``Lambdas.meas``)."""
         if self.patterns is not None:
-            return self._call_pattern(x)
+            sw, sa, e_w, s_eff_p, _, tsc, s_eff, t_full, _ = \
+                self._realize_pattern(x)
+            meas = float(np.dot(self._wfrac, tsc * (1.0 - s_eff_p))) \
+                if self.pattern_costs is not None else None
+            row = replace(self._lv0, s_eff=s_eff, t_scale=t_full) \
+                if self.accel else self.sparse_layers(x)
+            return sw, sa, e_w, meas, row
         if self.accel:
             sw, sa, s_eff = self._realize(x)
-            lv = replace(self._lv0, s_eff=s_eff)
-            dse = self.dse_cache.dse_vec(lv, self.hw, self.budget,
-                                         max_iters=self.dse_iters,
-                                         engine=self.dse_engine)
+            row = replace(self._lv0, s_eff=s_eff)
         else:
-            layers = self.sparse_layers(x)
-            sparse = [l for l in layers if l.prunable]
+            row = self.sparse_layers(x)
+            sparse = [l for l in row if l.prunable]
             sw = np.array([l.s_w for l in sparse])
             sa = np.array([l.s_a for l in sparse])
-            dse = incremental_dse(layers, self.hw, self.budget,
-                                  max_iters=self.dse_iters,
-                                  engine=self.dse_engine)
-        return self._finish(sw, sa, dse)
+        # energy removed: tile pruning drops whole tiles (~uniform energy ->
+        # fraction == sw); element pruning drops the smallest-|w| tail
+        e_w = sw if self.tiled else np.interp(sw, self._egrid, self._energy)
+        return sw, sa, e_w, None, row
 
-    def _call_pattern(self, x: np.ndarray) -> Dict[str, float]:
-        """Pattern-axis scoring path: realize per-pattern, thread the decode
-        ``t_scale`` through the DSE (``LayerVectors.t_scale`` — identical
-        Eq. 1 mapping in every engine), finish with per-pattern energies."""
-        rz = self._realize_pattern(x)
-        sw_real, sa_real, e_w, s_eff_p, _, tsc, s_eff, t_full, _ = rz
-        if self.accel:
-            lv = replace(self._lv0, s_eff=s_eff, t_scale=t_full)
-            dse = self.dse_cache.dse_vec(lv, self.hw, self.budget,
-                                         max_iters=self.dse_iters,
-                                         engine=self.dse_engine)
-        else:
-            dse = incremental_dse(self.sparse_layers(x), self.hw,
-                                  self.budget, max_iters=self.dse_iters,
-                                  engine=self.dse_engine)
-        return self._finish_pattern(sw_real, sa_real, e_w, s_eff_p, tsc, dse)
-
-    def _finish_pattern(self, sw_real, sa_real, e_w, s_eff_p, tsc,
-                        dse) -> Dict[str, float]:
-        """Per-pattern ``_finish``: energies come pre-computed from
-        ``_realize_pattern`` (each pattern has its own accuracy curve).
-        ``meas`` — the measured relative cycle estimate
-        sum_l wfrac_l * c_l * (1 - s_eff_l) — is reported ONLY when
-        ``pattern_costs`` was provided, so a cost-less pattern evaluator
-        emits exactly the seed metric dict (Eq. 6 term gating,
-        ``Lambdas.meas``)."""
-        e_a = np.interp(sa_real, np.linspace(0.0, 1.0, len(self._energy)),
-                        self._energy)
-        acc = float(np.exp(-self.alpha *
-                           np.dot(self._wfrac,
-                                  e_w + self.act_weight * e_a)))
-        spa = float(np.dot(self._wfrac, (sw_real + sa_real) / 2.0))
-        m = {"acc": acc, "spa": spa,
-             **frontier_hw_metrics(self, dse.frontier)}
-        if self.pattern_costs is not None:
-            m["meas"] = float(np.dot(self._wfrac, tsc * (1.0 - s_eff_p)))
-        return m
-
-    def _finish(self, sw: np.ndarray, sa: np.ndarray, dse) -> Dict[str, float]:
+    def _finish(self, sw: np.ndarray, sa: np.ndarray, e_w: np.ndarray,
+                meas: Optional[float], dse) -> Dict[str, float]:
         """Realized sparsity + DSE result -> the Eq. 6 metric dict (shared
         by the serial and the proposal-batched path, so both produce the
         same floats by construction)."""
-        # energy removed: tile pruning drops whole tiles (~uniform energy ->
-        # fraction == sw); element pruning drops the smallest-|w| tail
-        e_w = sw if self.tiled else \
-            np.interp(sw, np.linspace(0.0, 1.0, len(self._energy)),
-                      self._energy)
-        e_a = np.interp(sa, np.linspace(0.0, 1.0, len(self._energy)),
-                        self._energy)
+        e_a = np.interp(sa, self._egrid, self._energy)
         acc = float(np.exp(-self.alpha *
                            np.dot(self._wfrac, e_w + self.act_weight * e_a)))
         spa = float(np.dot(self._wfrac, (sw + sa) / 2.0))
-        return {"acc": acc, "spa": spa,
-                **frontier_hw_metrics(self, dse.frontier)}
+        m = {"acc": acc, "spa": spa, **self.hardware.terms(dse)}
+        if meas is not None:
+            m["meas"] = meas
+        return m
+
+    def __call__(self, x: np.ndarray) -> Dict[str, float]:
+        *realized, row = self._row(x)
+        return self._finish(*realized, self.hardware.dse(row))
 
     def evaluate_batch(self, xs: Sequence[np.ndarray]) -> List[Dict[str, float]]:
         """Proposal-batched path (DESIGN.md §15): realize every proposal's
-        ``s_eff`` row, then score the whole wave through
-        ``DSECache.dse_vec_batch`` — cache rows resolve in row order and
-        ALL cold rows advance in ONE batched-engine invocation instead of
-        k serial greedy runs. Bit-identical to ``[self(x) for x in xs]``
-        (batch-engine exactness + certificate soundness, property-tested).
-        A non-``auto`` ``dse_engine`` pins a specific serial engine, so it
-        keeps the plain loop.
-
-        With a pattern axis, rows are grouped by their decode ``t_scale``
-        vector (one ``LayerVectors`` template per distinct pattern
-        assignment's constants) and each group batches through
-        ``dse_vec_batch`` — rows are independent, so grouping preserves
-        per-row results exactly; patterned groups take the batch
-        dispatcher's explicit lockstep route (DESIGN.md §16)."""
-        if len(xs) < 2 or not self.accel or not self.batch_dse \
-                or self.dse_engine != "auto":
+        DSE row, then score the whole wave through
+        ``HardwareTerms.dse_batch`` — cache rows resolve in row order and
+        ALL cold rows of a decode ``t_scale`` group advance in one
+        batched-engine invocation instead of k serial greedy runs.
+        Bit-identical to ``[self(x) for x in xs]``, which it is where
+        ``HardwareTerms.batched`` says no."""
+        if not self.hardware.batched(len(xs)):
             return [self(x) for x in xs]
-        if self.patterns is not None:
-            rz = [self._realize_pattern(x) for x in xs]
-            keys = [None if r[7] is None else r[7].tobytes() for r in rz]
-            out: List[Optional[Dict[str, float]]] = [None] * len(xs)
-            seen: List = []
-            for key in keys:
-                if key not in seen:
-                    seen.append(key)
-            for key in seen:
-                rows = [i for i, k2 in enumerate(keys) if k2 == key]
-                lv = self._lv0 if key is None else \
-                    replace(self._lv0, t_scale=rz[rows[0]][7])
-                S = np.stack([rz[i][6] for i in rows])
-                dses = self.dse_cache.dse_vec_batch(
-                    lv, self.hw, self.budget, S, max_iters=self.dse_iters)
-                for i, dse in zip(rows, dses):
-                    sw_real, sa_real, e_w, s_eff_p, _, tsc = rz[i][:6]
-                    out[i] = self._finish_pattern(sw_real, sa_real, e_w,
-                                                  s_eff_p, tsc, dse)
-            return out
-        realized = [self._realize(x) for x in xs]
-        S = np.stack([s_eff for _, _, s_eff in realized])
-        dses = self.dse_cache.dse_vec_batch(self._lv0, self.hw, self.budget,
-                                            S, max_iters=self.dse_iters)
-        return [self._finish(sw, sa, dse)
-                for (sw, sa, _), dse in zip(realized, dses)]
+        rows = [self._row(x) for x in xs]
+        dses = self.hardware.dse_batch([r[-1] for r in rows])
+        return [self._finish(*r[:-1], dse) for r, dse in zip(rows, dses)]
 
 
 # --------------------------------------------------------------------- #
@@ -891,8 +822,8 @@ class CNNEvaluator:
     ``accel=True`` (default) enables the search-loop acceleration subsystem:
     per-layer sorted-|w| tables turn every tau_w quantile into an O(1)
     gather (weights are constant across a search), and the DSE runs through a
-    per-evaluator ``DSECache``. ``frontier_mode``/``budget_fracs`` select the
-    Eq. 6 frontier scoring (``frontier_hw_metrics``).
+    per-evaluator ``DSECache``. The DSE and Eq. 6's hardware terms are the
+    evaluator's ``HardwareTerms``.
 
     On a ``TPUModel`` (kept as a hardware *model* the search can target) the
     pruner is tile-structured (``pruning.tile_prune``, 128-aligned all-zero
@@ -908,11 +839,7 @@ class CNNEvaluator:
     dse_iters: int = 400
     cost_cfg: object = None     # full-res config for C_l (accuracy runs can
                                 # use a reduced img_res; layer names match)
-    lambdas: Lambdas = field(default_factory=Lambdas)  # Eq. 6 weights used
-                                # to pick the frontier trade-off point
     accel: bool = True          # presorted tau tables + DSECache
-    frontier_mode: str = "budgets"    # Eq. 6 frontier scoring (see
-    budget_fracs: tuple = (0.25, 0.5, 0.75, 1.0)   # frontier_hw_metrics)
     dse_engine: str = "auto"    # greedy engine (flat pins seed behavior)
     batch_dse: bool = True      # proposal-batched DSE in evaluate_batch
     patterns: Optional[tuple] = None   # sparsity-pattern axis: None = the
@@ -962,11 +889,13 @@ class CNNEvaluator:
                 self._act_q = torch.from_numpy(np.stack(
                     [samples[n] for n in self.names]).astype(np.float32)
                 ).to(self.device)
-        self.dse_cache = DSECache() if self.accel else None
         with tr.span("build.dense_dse"):
-            dense = incremental_dse(self.layers, self.hw, self.budget,
-                                    max_iters=self.dse_iters)
-        self.dense_thr = dense.throughput * self.hw.freq
+            self.hardware = HardwareTerms(
+                self.hw, self.budget, self.dse_iters, self.dse_engine,
+                self.batch_dse, dense=self.layers,
+                cache=DSECache() if self.accel else None)
+        self.dse_cache = self.hardware.cache
+        self.dense_thr = self.hardware.dense_thr
         # accel: weights never change across a search, so each layer's
         # sorted |w| is computed ONCE here and every proposal's tau_w is an
         # O(1) gather instead of a re-sort per layer per call
@@ -1250,19 +1179,6 @@ class CNNEvaluator:
                                    swt_meas if self.tiled else None,
                                    codes=codes)[0]
 
-    def _hw_terms(self, res: np.ndarray, thr: np.ndarray):
-        """(thr in samples/s, thr_norm, dsp) for frontier points, vectorized.
-        thr_norm is the log-compressed speedup: Eq. 6's lambda-normalization
-        heuristic keeps the hardware terms commensurate with acc in [0, 1]."""
-        thr_s = thr * self.hw.freq
-        thr_norm = np.log2(1.0 + thr_s / max(self.dense_thr, 1e-9)) / 4.0
-        return thr_s, thr_norm, res / max(self.budget, 1e-9)
-
-    def _eq6_hw_score(self, res: np.ndarray, thr: np.ndarray) -> np.ndarray:
-        """The Eq. 6 hardware combination used to pick the frontier point."""
-        _, thr_norm, dsp = self._hw_terms(res, thr)
-        return self.lambdas.thr * thr_norm - self.lambdas.dsp * dsp
-
     def _meas_term(self, layers) -> float:
         """Measured relative cycle estimate of one realized assignment:
         weight-fraction-weighted c_l * (1 - s_eff_l) over prunable layers
@@ -1281,19 +1197,16 @@ class CNNEvaluator:
                  codes: Optional[np.ndarray] = None) -> Dict[str, float]:
         """Measured per-layer sparsity -> perf model (Eq. 1-3) -> one DSE
         (through the ``DSECache`` when accelerated) -> Eq. 6 hardware terms
-        off the frontier (``frontier_hw_metrics``) -> the metric dict."""
+        off the frontier -> the metric dict."""
         layers, spa = self._sparse_layers(sw_meas, sa_meas, swt_meas,
                                           codes=codes)
-        if self.dse_cache is not None:
-            dse = self.dse_cache.dse(layers, self.hw, self.budget,
-                                     max_iters=self.dse_iters,
-                                     engine=self.dse_engine)
-        else:
-            dse = incremental_dse(layers, self.hw, self.budget,
-                                  max_iters=self.dse_iters,
-                                  engine=self.dse_engine)
-        m = {"acc": acc, "spa": spa,
-             **frontier_hw_metrics(self, dse.frontier)}
+        return self._finish(acc, spa, layers, codes,
+                            self.hardware.dse(layers))
+
+    def _finish(self, acc: float, spa: float, layers, codes,
+                dse) -> Dict[str, float]:
+        """The metric dict of one measured row and its DSE result."""
+        m = {"acc": acc, "spa": spa, **self.hardware.terms(dse)}
         if codes is not None and self.pattern_costs is not None:
             m["meas"] = self._meas_term(layers)
         return m
@@ -1303,51 +1216,20 @@ class CNNEvaluator:
                        swt_meas: Optional[np.ndarray],
                        codes_rows: Optional[np.ndarray] = None
                        ) -> List[Dict[str, float]]:
-        """Batched ``_metrics`` tail: one ``dse_vec_batch`` call scores all
-        measured-sparsity rows (the workload constants are per-layer dense
-        facts — identical across rows — so one ``LayerVectors`` template +
-        the stacked ``s_eff`` rows is the whole batch state). Bit-identical
-        to the per-row ``_metrics`` loop (property-tested). Pattern rows
-        whose decode ``t_scale`` vectors differ are grouped — one template
-        per distinct vector — because ``t_scale`` is a template constant,
-        not a per-row input; rows are independent, so grouping preserves
-        each row's result exactly."""
+        """Batched ``_metrics`` tail: the rows' measured stacks go to
+        ``HardwareTerms.dse_batch`` together (the workload constants are
+        per-layer dense facts, identical across rows). Bit-identical to the
+        per-row ``_metrics`` loop (property-tested)."""
         B = len(accs)
+        codes = [None] * B if codes_rows is None else codes_rows
         rows = [self._sparse_layers(sw_meas[b], sa_meas[b],
                                     swt_meas[b] if swt_meas is not None
-                                    else None,
-                                    codes=codes_rows[b]
-                                    if codes_rows is not None else None)
+                                    else None, codes=codes[b])
                 for b in range(B)]
-        lvs = [self.hw.layer_vectors(layers) for layers, _ in rows]
-        keys = [None if lv.t_scale is None else lv.t_scale.tobytes()
-                for lv in lvs]
-        dses: List = [None] * B
-        if len(set(keys)) == 1:
-            S = np.stack([lv.s_eff for lv in lvs])
-            dses = self.dse_cache.dse_vec_batch(lvs[0], self.hw,
-                                                self.budget, S,
-                                                max_iters=self.dse_iters)
-        else:
-            seen: List = []
-            for key in keys:
-                if key not in seen:
-                    seen.append(key)
-            for key in seen:
-                grp = [b for b in range(B) if keys[b] == key]
-                S = np.stack([lvs[b].s_eff for b in grp])
-                for b, dse in zip(grp, self.dse_cache.dse_vec_batch(
-                        lvs[grp[0]], self.hw, self.budget, S,
-                        max_iters=self.dse_iters)):
-                    dses[b] = dse
-        out = []
-        for b in range(B):
-            m = {"acc": float(accs[b]), "spa": rows[b][1],
-                 **frontier_hw_metrics(self, dses[b].frontier)}
-            if codes_rows is not None and self.pattern_costs is not None:
-                m["meas"] = self._meas_term(rows[b][0])
-            out.append(m)
-        return out
+        dses = self.hardware.dse_batch(
+            [self.hw.layer_vectors(layers) for layers, _ in rows])
+        return [self._finish(float(accs[b]), rows[b][1], rows[b][0],
+                             codes[b], dses[b]) for b in range(B)]
 
     def _scored(self, score: Callable[[], list]) -> list:
         """``score()``, the host half of a call (perf model, DSE, Eq. 6),
@@ -1408,8 +1290,7 @@ class CNNEvaluator:
             self.padded_batches += 1
         self.batch_shapes.add(target)
         accs, sw_meas, sa_meas, swt_meas = self._pass(s_w, s_a, codes, B)
-        if B > 1 and self.dse_cache is not None and self.batch_dse \
-                and self.dse_engine == "auto":
+        if self.hardware.batched(B):
             return self._scored(lambda: self._metrics_batch(
                 accs[:B], sw_meas[:B], sa_meas[:B],
                 swt_meas[:B] if self.tiled else None,

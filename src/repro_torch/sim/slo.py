@@ -354,8 +354,8 @@ class SimLatencyEvaluator:
         as ``lambdas.lat * lat``;
       * ``lat_cycles`` — the raw simulated percentile, for reports.
 
-    Everything else (``n_search``, ``sparse_layers``, ``lambdas`` sync)
-    passes through to the wrapped evaluator."""
+    Everything else (``n_search``, ``sparse_layers``) passes through to
+    the wrapped evaluator."""
 
     def __init__(self, base, hw: HardwareModel, budget: float, *, trace:
                  Trace, slo, n_parts: int, batch: int = 64,
@@ -372,17 +372,6 @@ class SimLatencyEvaluator:
         self.objective, self.q_depth = objective, q_depth
         self.reconfig_cycles = reconfig_cycles
         self.cache = DSECache(materialize_designs=True)
-
-    @property
-    def lambdas(self):
-        return self.base.lambdas
-
-    @lambdas.setter
-    def lambdas(self, v) -> None:
-        # hass_search installs its own Eq. 6 weights for the duration of a
-        # hardware-aware search; the wrapped evaluator's frontier-point
-        # selection must see them
-        self.base.lambdas = v
 
     def __getattr__(self, name):
         return getattr(self.base, name)

@@ -325,3 +325,89 @@ def test_search_run_asks_for_the_card_and_refuses_without_one():
             resolve_device("cuda")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
+
+
+class _WatchedEvaluator:
+    """A stand-in evaluator that records every attribute written to it
+    after construction; it carries the attributes a search may look up."""
+
+    def __init__(self):
+        for k, v in (("writes", []), ("lambdas", thass.Lambdas()),
+                     ("dse_cache", None)):
+            object.__setattr__(self, k, v)
+
+    def __setattr__(self, name, value):
+        self.writes.append(name)
+        object.__setattr__(self, name, value)
+
+    def __call__(self, x):
+        s = float(np.mean(x))
+        return {"acc": 1.0 - s * s, "spa": s, "thr": 1.0 + s,
+                "thr_norm": s, "dsp": 0.5 * s, "eff": 1.0}
+
+    def evaluate_batch(self, xs):
+        return [self(x) for x in xs]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=None), dict(batch_size=1), dict(batch_size=4),
+    dict(batch_size=None, x0=np.zeros(6)), dict(batch_size=4, x0=np.zeros(6)),
+])
+def test_search_writes_no_attribute_of_its_evaluator(kw):
+    ev = _WatchedEvaluator()
+    lam = ev.lambdas
+    r = thass.hass_search(ev, 3, iters=7, seed=0, hardware_aware=True,
+                          lambdas=thass.Lambdas(thr=0.9), **kw)
+    assert len(r.trials) == 7
+    assert ev.writes == [] and ev.lambdas is lam
+
+
+def _dse_plain(r):
+    f = r.frontier
+    return (r.throughput, r.resource, r.throughput_per_res, r.trace,
+            r.theta_r, r.designs, f.res.tobytes(), f.thr.tobytes(),
+            f.spe.tobytes(), f.n.tobytes())
+
+
+def _interleaved_rows(kind):
+    """(evaluator, DSE rows of two t_scale groups, interleaved): the seed
+    pruner's rows (no decode cost) and N:M rows (decode factor 2.2)."""
+    rng = np.random.default_rng(4)
+    if kind == "cnn":
+        ev = _ev(hw="TPUModel", patterns=ALL_PATTERNS, costs=True)
+        rows = []
+        for b in range(4):
+            sw, sa = rng.uniform(0.0, 0.9, (2, L)).astype(np.float32)
+            layers, _ = ev._sparse_layers(sw, sa, sw,
+                                          codes=np.full(L, b % 2))
+            rows.append(ev.hw.layer_vectors(layers))
+        return ev, rows
+    from repro_torch import configs as tconfigs
+    ev = thass.LMEvaluator(
+        tconfigs.get_config("qwen3-0.6b"), tpm.TPUModel(), budget=4096.0,
+        dse_iters=120, patterns=ALL_PATTERNS,
+        pattern_costs={"nm": 2.2, "hierarchical": 1.8})
+    rows = [ev._row(np.concatenate([
+        rng.uniform(0.0, 0.9, ev.n_search),
+        np.full(ev.n_pattern_dims, float(b % 2))]))[-1] for b in range(4)]
+    return ev, rows
+
+
+@pytest.mark.parametrize("kind", ["cnn", "lm"])
+def test_batch_dse_gives_each_row_its_own_result(kind):
+    ev, rows = _interleaved_rows(kind)
+    keys = [None if lv.t_scale is None else lv.t_scale.tobytes()
+            for lv in rows]
+    assert keys[0] is None and keys[1] is not None
+    assert keys[0::2] == [keys[0]] * 2 and keys[1::2] == [keys[1]] * 2
+    h = ev.hardware
+    assert h.batched(len(rows))
+    alone = thass.HardwareTerms(
+        h.hw, h.budget, h.dse_iters, h.dse_engine, h.batch_dse,
+        cache=type(h.cache)(materialize_designs=h.cache.materialize_designs),
+        dense=ev.layers)
+    assert alone.dense_thr == ev.dense_thr
+    got = h.dse_batch(rows)
+    want = [alone.dse(lv) for lv in rows]
+    assert [_dse_plain(r) for r in got] == [_dse_plain(r) for r in want]
+    assert [h.terms(r) for r in got] == [alone.terms(r) for r in want]

@@ -161,6 +161,67 @@ def test_anchored_trial_has_no_propose():
     _assert_nested(tracer)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=None), dict(batch_size=1),
+    dict(batch_size=None, x0="dense"), dict(batch_size=1, x0="dense"),
+])
+def test_rounds_of_one_under_one_tracer_and_recorder(tmp_path, kw):
+    """A serial search, ``batch_size=1`` and an anchored search: serial
+    trials are ``trial(i)`` > the four phases, rounds of one are
+    ``round`` > the four phases and one ``trial(i)``, the ``x0`` trial has
+    no ``propose``; the recorder writes one record a trial, each the whole
+    of its round, and the transcript is the untraced one."""
+    ev = _ev()
+    kw = dict(kw, iters=4, seed=6)
+    if "x0" in kw:
+        kw["x0"] = np.zeros(2 * len(ev.names))
+    tracer = obs.Tracer()
+    path = str(tmp_path / "run.jsonl")
+    with obs.FlightRecorder(path) as rec:
+        r = _search(tracer, recorder=rec, **kw)
+    off = _search(**kw)
+    for a, b in zip(off.trials, r.trials):
+        assert np.array_equal(a.x, b.x)
+        assert a.score == b.score and a.metrics == b.metrics
+    by_id, kids = _tree(tracer)
+    (root,) = kids[None]
+    assert by_id[root]["name"] == "search" and len(kids[root]) == 4
+    for i, o in enumerate(kids[root]):
+        names = _names(by_id, kids[o])
+        if i == 0 and "x0" in kw:
+            assert by_id[o]["name"] == "trial"
+            assert by_id[o]["args"] == {"i": 0}
+            assert names == ["evaluate", "record", "tell"]
+        elif kw["batch_size"] is None:
+            assert by_id[o]["name"] == "trial"
+            assert by_id[o]["args"] == {"i": i}
+            assert names == sorted(ROUND_CHILDREN)
+        else:
+            assert by_id[o]["name"] == "round" and by_id[o]["args"] == {}
+            assert names == sorted(ROUND_CHILDREN | {"trial"})
+            (t,) = [c for c in kids[o] if by_id[c]["name"] == "trial"]
+            assert by_id[t]["args"] == {"i": i} and t not in kids
+        (ev_id,) = [c for c in kids[o] if by_id[c]["name"] == "evaluate"]
+        _assert_evaluate_tree(by_id, kids, ev_id)
+    _assert_nested(tracer)
+    assert tracer.counters["search.trials"] == 4
+    run = obs.load_run(path)
+    cfg = run["header"]["config"]
+    assert run["header"]["search"] == "hass_search"
+    assert cfg["batch_size"] == kw["batch_size"] and cfg["iters"] == 4
+    assert cfg["evaluator"] == "CNNEvaluator"
+    assert [t["i"] for t in run["trials"]] == [0, 1, 2, 3]
+    for j, (t, want) in enumerate(zip(run["trials"], r.trials)):
+        assert t["score"] == want.score and t["round_size"] == 1
+        assert set(t["phases"]) == {"propose", "evaluate", "tell"}
+        assert t["phases"]["evaluate"] > 0
+        assert (t["phases"]["propose"] == 0.0) == (j == 0 and "x0" in kw)
+        assert sum(t["cache"][k] for k in DSE_COUNTERS) == 1
+        assert t["engine"]
+    foot = run["footer"]
+    assert foot["n_trials"] == 4 and foot["best_score"] == r.best_score
+
+
 @pytest.mark.parametrize("batch_size", [3, None])
 def test_transcript_is_bit_identical_with_the_tracer_off_on_and_recording(
         tmp_path, batch_size):

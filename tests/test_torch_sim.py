@@ -401,9 +401,6 @@ def test_sim_latency_evaluator_batch_path_matches_serial():
     assert _as_plain(batched) == _as_plain(jev.evaluate_batch(jxs))
     assert batched == [ev(x) for x in xs]
     assert all("lat" in m and "lat_cycles" in m for m in batched)
-    # the lambdas sync hass_search performs must reach the wrapped base
-    ev.lambdas = thass.Lambdas(lat=0.7)
-    assert base.lambdas.lat == 0.7
 
 
 # --------------------------------------------------------------------- #
