@@ -1,7 +1,7 @@
 """Quickest proof that the PyTorch/CUDA port starts and is right on an NVIDIA
 GPU: one HASS search on ResNet-18 at its full published widths, driven through
 the entry points a user calls, then Table II's search on all five paper CNNs,
-with both hand-written CUDA kernels built from their sources and held against
+with the hand-written CUDA kernels built from their sources and held against
 their plain PyTorch versions.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
@@ -16,7 +16,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
            plain, bound and one-PyTorch-call times; the clip's batched entry
            (gate b) at the 21 ResNet-18 clip inputs of a round of 8
            proposals and of a serial pass (1 proposal), one tau each: y bit
-           for bit, counts equal
+           for bit, counts equal; the implicit-GEMM convolution
+           (conv_igemm) at each distinct shape of the 20 ResNet-18 layers it
+           takes in a batched pass of 8 proposals, TF32 off: y bit for bit
+           against its plain version (cuDNN's grouped convolution), bias
+           and activation included
   kernel_costs  the pattern decode-cost tables (``kernels.kernel_costs``)
            measured on the card at the default probe shape and at the main
            path's (a ResNet-18 layer-3 im2col product): each probe's time,
@@ -28,8 +32,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
            captured once as a CUDA graph and replayed), a short serial run
            and its batch_size=1 replay (gate e); gates: launches of the
            clip's batched entry == prunable layers x stats passes and of its
-           single entry 0, stats forwards == the proposals evaluated, the
-           16-trial searches built one shape (gate c); prints graphs
+           single entry 0, of conv_igemm == its 20 layers x the 4 batched
+           passes (none in a serial pass), stats forwards == the proposals
+           evaluated, the 16-trial searches built one shape (gate c); prints graphs
            captured, capture seconds, graph-pool bytes, trials/s batched
            and serial
   search_gates  right after the main path's counts are read, on its
@@ -37,7 +42,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
            eagerly, bit for bit; (c) a ragged 3 + 3 + 2 search pads its tail
            and builds one new shape; (d) every batched trial of both
            searches within rel 1e-3 / abs 1e-6 of the same proposal through
-           the serial path; launches == prunable layers x passes
+           the serial path; launches == prunable layers x passes, and
+           conv_igemm's == 20 x the batched ones
   execute  the winner's pruned weights through block_sparse_matmul
   patterns the search's configuration again with the pattern axis: the
            degenerate ("unstructured",) axis replays the search's transcript
@@ -149,7 +155,8 @@ operands the main path hands them, unpadded, inside a CUDA graph that is then
 replayed, so the host's cost of making a call is not in the number: the main
 path pays that cost too, see ``wrapper_ms``); it holds every device operation
 of the call (the matmul's split reduction too). ``library_ms`` is one dense
-``x @ w`` timed the same way, ``plain_device_ms`` the clip's plain version
+``x @ w`` timed the same way (for conv_igemm one grouped cuDNN convolution
+on its own weight layout, without bias or activation), ``plain_device_ms`` the clip's plain version
 timed the same way, ``wrapper_ms`` the same call eagerly with its host cost,
 and ``plain_ms`` the plain PyTorch version called the same way. ``bound_ms``
 counts the unpadded operands of the function the main path calls: padding to
@@ -378,6 +385,94 @@ def phase_kernels_clip_batched(dev):
             "serial": {k: v for k, v in at1.items() if k != "cases"}}
 
 
+#: the layers of ResNet-18's batched pass that the implicit-GEMM kernel takes
+#: (``cnn.is_igemm``: 16 3 x 3s, 3 strided 1 x 1 projections, the stem)
+IGEMM_LAYERS = 20
+
+
+def phase_kernels_conv_igemm(dev):
+    """The implicit-GEMM kernel at the layers it takes in each batched pass
+    of the search phase (ResNet-18 at 224 x 224, 8 proposals of 8 images,
+    float32 with TF32 off as the evaluator sets it), one case per distinct
+    shape: against its plain version (the HWIO copy and grouped cuDNN
+    convolution the pass ran before the kernel, with the layer's bias and
+    activation) bit for bit, a second launch equal to the first. Then each
+    shape timed as the pass calls it (device time in a CUDA graph), beside
+    the plain version, the library (one grouped cuDNN convolution on its
+    own weight layout, without bias or activation) and the bound, each
+    summed over the layers of that shape."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.hass import _float32_convolutions
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bench_util import (conv_bound_ms, device_ms,
+                                                time_ms)
+    from repro_torch.models import cnn
+    B, seen = SEARCH_BATCH, {}
+    for s in cnn.build_specs(get_config("resnet18")):
+        if cnn.is_igemm(s, B):
+            key = (s.cin, s.cout, s.k, s.stride, s.in_hw, s.act == "relu")
+            seen[key] = seen.get(key, 0) + 1
+    if sum(seen.values()) != IGEMM_LAYERS:
+        fail(f"ResNet-18's routed layers: {seen}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(9)
+    rows, tot, max_err = [], dict.fromkeys(
+        ("ms", "wrapper_ms", "plain_ms", "plain_device_ms", "library_ms",
+         "bound_ms"), 0.0), 0.0
+    with torch.no_grad(), _float32_convolutions():
+        for (cin, cout, k, stride, hw, relu), n in seen.items():
+            x = torch.randn((CALIB_BATCH, hw, hw, B * cin),
+                            generator=gen).to(dev)
+            w = (torch.randn((B, k, k, cin, cout), generator=gen)
+                 / (k * cin ** 0.5)).to(dev)
+            b = (torch.randn((cout,), generator=gen) / 4).to(dev)
+            y = ops.conv_igemm(x, w, b, stride, relu)
+            y_ref = ref.conv_igemm_ref(x, w, b, stride, relu)
+            again = ops.conv_igemm(x, w, b, stride, relu)
+            torch.cuda.synchronize()
+            if not torch.equal(y, y_ref) or not torch.equal(y, again):
+                fail(f"conv_igemm != plain at {cin}x{cout} k{k} s{stride} "
+                     f"@{hw}: gap {float((y - y_ref).abs().max())}")
+            max_err = max(max_err, float((y - y_ref).abs().max()))
+            oihw = w.permute(0, 4, 3, 1, 2).reshape(
+                B * cout, cin, k, k).contiguous()
+            nchw = x.permute(0, 3, 1, 2)
+            bound, by = conv_bound_ms(x, w, y)
+            t = {"ms": device_ms(
+                     lambda: ops.conv_igemm(x, w, b, stride, relu)),
+                 "wrapper_ms": time_ms(
+                     lambda: ops.conv_igemm(x, w, b, stride, relu)),
+                 "plain_ms": time_ms(
+                     lambda: ref.conv_igemm_ref(x, w, b, stride, relu)),
+                 "plain_device_ms": device_ms(
+                     lambda: ref.conv_igemm_ref(x, w, b, stride, relu)),
+                 "library_ms": device_ms(lambda: F.conv2d(
+                     nchw, oihw, None, stride=stride, padding=(k - 1) // 2,
+                     groups=B)),
+                 "bound_ms": bound}
+            rows.append({"shape": [cin, cout, k, stride, hw], "relu": relu,
+                         "layers": n, "x": list(x.shape), **t,
+                         "bound_by": by})
+            for key, v in t.items():
+                tot[key] += n * v
+            del x, w, y, y_ref, again, oihw, nchw
+    return {"name": "conv_igemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/conv_igemm.cu",
+            "replaces": None, "equal": True, "cases": len(rows),
+            "max_abs_err": max_err,
+            "tolerance": "bit-equal to the plain version (cuDNN's grouped "
+                         "convolution, TF32 off), bias and activation "
+                         "included",
+            **tot, "bound_by": "/".join(sorted({r["bound_by"]
+                                                for r in rows})),
+            "proposals": B,
+            "layers": IGEMM_LAYERS,
+            "timed_over": "the 20 routed layers of one batched pass of 8 "
+                          "proposals of 8 images, f32, summed",
+            "shapes": rows}
+
+
 def matmul_device_ms(sw, x, budget_ms: float = 60.0) -> float:
     """block_sparse_matmul's device time as the main path calls it:
     ``SparseWeight.matmul`` on the unpadded x (one launch, or two with the
@@ -593,6 +688,11 @@ def phase_search(dev):
         fail(f"act_clip_count launches {counts} != 21 x {ev.stats_passes} "
              f"stats passes (13 expected) through the batched entry, "
              f"{ev.stats_forwards} proposals (41)")
+    # the implicit-GEMM kernel: once per routed layer in each of the 4
+    # batched passes, never in a serial one (one proposal stays on cuDNN)
+    if counts["conv_igemm"] != IGEMM_LAYERS * 4:
+        fail(f"conv_igemm launches {counts['conv_igemm']} != "
+             f"{IGEMM_LAYERS} x 4 batched passes")
     for res in (payload["hw_result"], payload["sw_result"], serial):
         for t in res.trials:
             m = t.metrics
@@ -610,6 +710,8 @@ def phase_search(dev):
          stats_forwards=ev.stats_forwards, stats_passes=ev.stats_passes,
          act_clip_launches_per_pass=21,
          act_clip_launches=launches,
+         conv_igemm_launches_per_pass=IGEMM_LAYERS,
+         conv_igemm_launches=counts["conv_igemm"],
          graphs_captured=ev.graphs_captured, capture_s=ev.capture_s,
          graph_pool_bytes=ev.graph_pool_bytes,
          batch_shapes=sorted(ev.batch_shapes),
@@ -691,8 +793,10 @@ def phase_search_gates(payload) -> dict:
     passes = ev.stats_passes - passes0 + 1
     counts = kernels.launch_counts()
     if counts["act_clip_count_batched"] != L * passes or \
-            counts["act_clip_count"] or counts["block_sparse_matmul"]:
-        fail(f"search_gates: launches {counts} over {passes} passes")
+            counts["act_clip_count"] or counts["block_sparse_matmul"] or \
+            counts["conv_igemm"] != IGEMM_LAYERS * (passes - checked):
+        fail(f"search_gates: launches {counts} over {passes} passes, "
+             f"{checked} of them serial")
     return {"replay_equals_eager": True, "ragged_padded_rounds":
             ev.padded_batches - padded, "ragged_new_shapes": [3],
             "trials_checked_against_serial": checked,
@@ -728,7 +832,8 @@ def phase_patterns(payload, factors) -> dict:
     passes = sum(out[a]["ev"].stats_passes
                  for a in ("unstructured", "patterns"))
     if counts["act_clip_count_batched"] != 21 * passes or \
-            counts["act_clip_count"] or forwards != 32 or passes != 4:
+            counts["act_clip_count"] or forwards != 32 or passes != 4 or \
+            counts["conv_igemm"] != IGEMM_LAYERS * passes:
         fail(f"patterns: act_clip_count launches {counts} over {passes} "
              f"stats passes of {forwards} proposals")
     best = res.best_metrics
@@ -997,6 +1102,9 @@ def phase_paper(dev) -> dict:
         if counts["block_sparse_matmul"] != len(prods):
             fail(f"paper: {cfg.name}: block_sparse_matmul launches "
                  f"{counts['block_sparse_matmul']} != {len(prods)} products")
+        if counts["conv_igemm"]:
+            fail(f"paper: {cfg.name}: its serial passes launched conv_igemm "
+                 f"{counts['conv_igemm']} times (one proposal is cuDNN's)")
         for t in res.trials:
             m = t.metrics
             if not (np.isfinite(t.score) and 0.0 <= m["acc"] <= 1.0
@@ -2594,7 +2702,8 @@ def main() -> None:
     clip = timed("kernels_clip", phase_kernels_clip, dev)
     clip_b = timed("kernels_clip_batched", phase_kernels_clip_batched, dev)
     mm = timed("kernels_matmul", phase_kernels_matmul, dev)
-    emit("kernels", kernels=[clip, clip_b, mm])
+    conv = timed("kernels_conv_igemm", phase_kernels_conv_igemm, dev)
+    emit("kernels", kernels=[clip, clip_b, mm, conv])
     costs = timed("kernel_costs", phase_kernel_costs, dev, args.costs_out)
     emit("kernel_costs", card=card, **costs["tables"])
 
@@ -2604,7 +2713,8 @@ def main() -> None:
     rows = timed("execute", phase_execute, payload)
     counts = kernels.launch_counts()
     if counts["act_clip_count_batched"] < 21 or counts["act_clip_count"] or \
-            counts["block_sparse_matmul"] != 22:
+            counts["block_sparse_matmul"] != 22 or \
+            counts["conv_igemm"] != IGEMM_LAYERS * 4:
         fail(f"the main path did not go through the kernels: {counts}")
     emit("search_gates", card=card,
          **timed("search_gates", phase_search_gates, payload))
@@ -2680,7 +2790,18 @@ def main() -> None:
             "train_families": families["spe_kernel_launches"][
                 "block_sparse_matmul"],
             "distributed": dist_["spe_kernel_launches"][
-                "block_sparse_matmul"]}}
+                "block_sparse_matmul"]},
+        # the batched passes of a CNN search, and no LM path
+        "conv_igemm": {
+            "search+execute": counts["conv_igemm"],
+            "patterns": pat["launches"]["conv_igemm"],
+            "paper": paper["launches"]["conv_igemm"],
+            "quickstart": q_launches["conv_igemm"],
+            "bench_twins": twins["spe_kernel_launches"],
+            "train": train["spe_kernel_launches"]["conv_igemm"],
+            "train_families": families["spe_kernel_launches"][
+                "conv_igemm"],
+            "distributed": dist_["spe_kernel_launches"]["conv_igemm"]}}
     record = {"kernels": [
         {"name": clip["name"], "route": clip["route"],
          "source": clip["source"], "replaces": clip["replaces"],
@@ -2711,6 +2832,15 @@ def main() -> None:
          "bound_ms": tot["bound_ms"], "bound_by": by,
          "library_ms": tot["library_ms"],
          "path_launches": path_launches["block_sparse_matmul"]},
+        {"name": conv["name"], "route": conv["route"],
+         "source": conv["source"], "replaces": conv["replaces"],
+         "launches": counts["conv_igemm"],
+         "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
+         "wrapper_ms": conv["wrapper_ms"], "plain_ms": conv["plain_ms"],
+         "plain_device_ms": conv["plain_device_ms"],
+         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+         "library_ms": conv["library_ms"],
+         "path_launches": path_launches["conv_igemm"]},
     ]}
     emit("done", seconds=round(time.perf_counter() - t_start, 1),
          phase_seconds=phase_s)

@@ -1046,11 +1046,13 @@ class CNNEvaluator:
         ``pass.clip_launches``, the batched clip kernel's launches in the
         pass (one per prunable layer on the card, none on the CPU), and
         ``pass.conv_gemms``, its convolutions that ran as one product (one
-        per 1 x 1 stride-1 layer where B > 1, on any device)."""
+        per 1 x 1 stride-1 layer where B > 1, on any device), and
+        ``pass.conv_igemms``, the implicit-GEMM kernel's launches (one per
+        other ``conv`` layer where B > 1 on the card, none on the CPU)."""
         tr = get_tracer()
         with tr.span("evaluate.pass"):
             if tr.enabled:
-                clips = kernels.launch_counts()["act_clip_count_batched"]
+                launched = kernels.launch_counts()
                 gemms = kernels.product_counts()["conv_gemm"]
             host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
                     (s_w, s_a) + (() if codes is None else
@@ -1070,10 +1072,14 @@ class CNNEvaluator:
             with tr.span("pass.readback"):
                 out = out.cpu().numpy()
             if tr.enabled:
-                tr.count("pass.clip_launches", kernels.launch_counts()[
-                    "act_clip_count_batched"] - clips)
+                now = kernels.launch_counts()
+                tr.count("pass.clip_launches",
+                         now["act_clip_count_batched"] -
+                         launched["act_clip_count_batched"])
                 tr.count("pass.conv_gemms", kernels.product_counts()[
                     "conv_gemm"] - gemms)
+                tr.count("pass.conv_igemms",
+                         now["conv_igemm"] - launched["conv_igemm"])
         self.stats_passes += 1
         self.stats_forwards += n_real
         L = len(self.names)

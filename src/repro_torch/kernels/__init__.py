@@ -2,6 +2,7 @@
 
 ``act_clip``            clip unit + zero counter   (csrc/act_clip_count.cu)
 ``block_sparse_matmul`` static tile-schedule matmul (csrc/block_sparse_matmul.cu)
+``conv_igemm``          grouped convolution as an implicit GEMM (csrc/conv_igemm.cu)
 ``ref``                 the plain PyTorch version of each
 ``ops``                 any-shape wrappers (schedule and work-plan construction)
 ``build``               nvcc build + ctypes loader
@@ -25,7 +26,7 @@ import torch
 #: per kernel entry: wrapper calls that launched it, and wrapper calls made
 #: while the current stream captured a CUDA graph
 _LAUNCHED = {"act_clip_count": 0, "act_clip_count_batched": 0,
-             "block_sparse_matmul": 0, "conv_gemm": 0}
+             "block_sparse_matmul": 0, "conv_gemm": 0, "conv_igemm": 0}
 _CAPTURED = dict.fromkeys(_LAUNCHED, 0)
 #: the library products among them
 _PRODUCTS = ("conv_gemm",)
@@ -45,7 +46,7 @@ def launch_counts() -> Dict[str, int]:
     ``act_clip_count`` entry is two device operations (a 4-byte memset of
     its ticket word, then the kernel); one ``block_sparse_matmul`` call is
     one launch, or two when its work plan splits K (the product, then the
-    ordered reduction)."""
+    ordered reduction); one ``conv_igemm`` call is one launch."""
     return {k: v for k, v in _LAUNCHED.items() if k not in _PRODUCTS}
 
 

@@ -87,6 +87,20 @@ def clip_bound_ms(x: torch.Tensor, n_tiles: int) -> Tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def conv_bound_ms(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor
+                  ) -> Tuple[float, str]:
+    """A grouped convolution (``ops.conv_igemm``): x NHWC, w (B, k, k, cin,
+    cout), y NHWC (N, Ho, Wo, B * cout); 2 flops for each of the k * k *
+    cin MACs of every output against x, w and y moved once (float32) and
+    the bias read once."""
+    _, k, _, cin, cout = w.shape
+    flops = 2.0 * y.numel() * k * k * cin
+    by = 4 * (x.numel() + w.numel() + y.numel() + cout)
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = by / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def matmul_bound_ms(sw, M: int, elem_size: int) -> Tuple[float, str]:
     """The least work of ``x (M, K) @ w (K, N)`` under ``sw``'s schedule (an
     ``ops.SparseWeight``), on the unpadded operands: 2 * M * rows * cols

@@ -25,7 +25,7 @@ from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("act_clip_count.cu", "block_sparse_matmul.cu")
+SOURCES = ("act_clip_count.cu", "block_sparse_matmul.cu", "conv_igemm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,7 @@ _PTR, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _CLIP = (_PTR, _F32, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR)
 _CLIP_BATCHED = (_PTR,) * 5 + (_LL, _INT, _INT, _INT, _INT, _PTR)
 _MATMUL = (_PTR,) * 7 + (_LL,) * 4 + (_INT,) * 7 + (_PTR,)
+_CONV = (_PTR,) * 4 + (_INT,) * 10 + (_PTR,)
 _SIGNATURES = {
     "hass_act_clip_count_f32": _CLIP,
     "hass_act_clip_count_bf16": _CLIP,
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "hass_act_clip_count_batched_bf16": _CLIP_BATCHED,
     "hass_block_sparse_matmul_f32": _MATMUL,
     "hass_block_sparse_matmul_bf16": _MATMUL,
+    "hass_conv_igemm_f32": _CONV,
 }
 
 

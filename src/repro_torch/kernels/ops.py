@@ -3,7 +3,8 @@
 Any-shape entry points and schedule construction from pruned weights. The
 device decides the backend: a CUDA tensor goes through the hand-written
 kernel, which takes the operand as it lies (no padded copy), a CPU tensor
-through the kernel's plain version.
+through the kernel's plain version. ``conv_igemm`` is the grouped
+convolution of the batched CNN forward (``kernels.conv_igemm``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.kernels.act_clip import (act_clip_count_batched,
 from repro_torch.kernels.block_sparse_matmul import (DevicePlan,
                                                      build_tile_schedule,
                                                      make_plan, run_plan)
+from repro_torch.kernels.conv_igemm import conv_igemm
 
 
 def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -105,3 +107,4 @@ def act_clip(x: torch.Tensor, tau, *, bm: int = 256, bn: int = 256):
 #: batched entry, which reads the taus where they lie: a captured CUDA graph
 #: clips each replay at that replay's taus.
 act_clip_batched = act_clip_count_batched
+

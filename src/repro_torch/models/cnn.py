@@ -15,8 +15,9 @@ Layouts at the public boundary are those of the JAX package: images and every
 layer output NHWC, convolution weights HWIO ``(k, k, cin, cout)`` (depthwise
 ``(k, k, 1, cout)``), linear weights ``(cin, cout)``. The convolutions
 run on channels-first *views* of those tensors, but for the batched
-forward's 1 x 1 stride-1 layers: a product on the NHWC tensors themselves
-(``_conv_gemm``).
+forward's over more than one proposal, which run on the NHWC tensors
+themselves: a 1 x 1 stride-1 layer as a product (``_conv_gemm``), any
+other ``conv`` layer as the implicit-GEMM kernel (``ops.conv_igemm``).
 """
 from __future__ import annotations
 
@@ -299,6 +300,15 @@ def is_gemm(s: LayerSpec, groups: int) -> bool:
     return s.kind == "conv" and s.k == 1 and s.stride == 1 and groups > 1
 
 
+def is_igemm(s: LayerSpec, groups: int) -> bool:
+    """A convolution that ``forward_batched`` runs through
+    ``ops.conv_igemm``: every ``conv`` layer over more than one proposal
+    that ``is_gemm`` leaves (the 3 x 3s, the strided 1 x 1 projections,
+    the stems). One proposal stays on cuDNN, for the reason ``is_gemm``
+    gives; the depthwise layers stay on cuDNN too."""
+    return s.kind == "conv" and groups > 1 and not is_gemm(s, groups)
+
+
 def _conv_gemm(x, w):
     """A 1 x 1 stride-1 convolution of B groups as one strided-batched
     product: NHWC x (N, H, W, B * cin), w (B, cin, cout) -> NHWC (N, H, W,
@@ -388,10 +398,13 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
     float32 clip thresholds on the images' device (a tau for a layer that
     is not prunable clips its input without counting). Every activation
     holds the B proposals' channels side by side in its last dim, NHWC with
-    B * C channels: a 1 x 1 stride-1 convolution is one strided-batched
-    product on those channels (``_conv_gemm``, where B > 1: ``is_gemm``),
-    any other convolution one grouped convolution (``groups=B``, B * cout
-    for ``dwconv``), a linear layer one batched product, SE, pooling and
+    B * C channels: where B > 1 a 1 x 1 stride-1 convolution is one
+    strided-batched product on those channels (``_conv_gemm``,
+    ``is_gemm``) and any other ``conv`` one launch of the implicit-GEMM
+    kernel over the B groups, its bias and relu in the kernel
+    (``ops.conv_igemm``, ``is_igemm``); every other convolution is one
+    grouped convolution (``groups=B``, B * cout for ``dwconv``), a linear
+    layer one batched product, SE, pooling and
     residual adds act per channel and so per proposal, and a
     prunable layer's clip and zero count is one ``ops.act_clip_batched``
     call. Returns (logits (N, B, classes), {layer: (B,) input zero
@@ -411,14 +424,18 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
             stats[s.name] = cnt.to(torch.float32) / (x.numel() // B)
         elif s.name in taus:
             x = act_clip(x, taus[s.name].repeat_interleave(x.shape[-1] // B))
-        if s.kind in ("conv", "dwconv"):
+        if is_igemm(s, B):
+            relu = s.act == "relu"
+            x = ops.conv_igemm(x, weights[s.name].contiguous(), p["b"],
+                               s.stride, relu)
+            if not relu:
+                x = _act(x, s.act)
+        elif s.kind in ("conv", "dwconv"):
             if is_gemm(s, B):
                 x = _conv_gemm(x, weights[s.name].reshape(B, s.cin, s.cout))
             else:
-                if s.kind == "conv":    # (B, k, k, cin, cout) -> HWIO
-                    w = weights[s.name].permute(1, 2, 3, 0, 4).reshape(
-                        s.k, s.k, s.cin, B * s.cout)
-                    groups = B
+                if s.kind == "conv":    # one proposal: its HWIO weight
+                    w, groups = weights[s.name][0], 1
                 else:
                     w = p["w"].repeat(1, 1, 1, B)
                     groups = B * s.cout

@@ -53,7 +53,8 @@ def fleet_port(tmp_path_factory):
                                   out_dir=str(out))
         assert kernels.launch_counts() == {"act_clip_count": 0,
                                            "act_clip_count_batched": 0,
-                                           "block_sparse_matmul": 0}
+                                           "block_sparse_matmul": 0,
+                                           "conv_igemm": 0}
     return payload, load(out / "fleet_bench_cpu.json")
 
 
@@ -121,7 +122,8 @@ def test_chaos_bench_payload_equals_the_jax_script(tmp_path):
     got = chaos_bench.run(smoke=True, device="cpu", out_dir=str(tmp_path))
     assert kernels.launch_counts() == {"act_clip_count": 0,
                                        "act_clip_count_batched": 0,
-                                       "block_sparse_matmul": 0}
+                                       "block_sparse_matmul": 0,
+                                       "conv_igemm": 0}
     assert load(tmp_path / "chaos_bench_cpu.json") == jsonable(got)
     assert without(got, chaos_bench.WALL_CLOCK) == dict(want, smoke=True)
     assert [r["consumer"] for r in got["zero_fault"]][-1] == "serve"

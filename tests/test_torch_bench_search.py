@@ -301,7 +301,8 @@ def test_runner_on_the_cpu_writes_its_summary(tmp_path):
     assert [j["job"] for j in s["jobs"]] == ["fig4", "fig6"]
     assert all(j["ok"] and j["launches"] == {"act_clip_count": 0,
                                               "act_clip_count_batched": 0,
-                                              "block_sparse_matmul": 0}
+                                              "block_sparse_matmul": 0,
+                                              "conv_igemm": 0}
                for j in s["jobs"])
     assert s["failures"] == 0 and s["img_res"] == 64
     with pytest.raises(SystemExit):

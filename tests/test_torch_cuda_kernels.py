@@ -413,8 +413,10 @@ def test_cuda_captured_replay_equals_the_eager_pass(cuda_evaluator, B):
 
 @pytest.mark.cuda
 def test_cuda_replays_count_their_launches(cuda_evaluator):
-    """Batched-entry launches == prunable layers x passes over N replays:
-    the launches a graph holds count at each replay, never at capture."""
+    """Batched-entry launches == prunable layers x passes over N replays,
+    and likewise the implicit-GEMM kernel's (one per ``conv`` layer that
+    is no 1 x 1 stride-1 product: 20 of reduced ResNet-18's): the
+    launches a graph holds count at each replay, never at capture."""
     from repro_torch import kernels
     ev = cuda_evaluator
     L = len(ev.names)
@@ -426,10 +428,12 @@ def test_cuda_replays_count_their_launches(cuda_evaluator):
     assert ev.stats_passes == passes + 5
     assert kernels.launch_counts() == {"act_clip_count": 0,
                                        "act_clip_count_batched": 5 * L,
-                                       "block_sparse_matmul": 0}
+                                       "block_sparse_matmul": 0,
+                                       "conv_igemm": 5 * 20}
     graph = ev._graphs[(False, 3)][0]
     assert graph.held == {"act_clip_count": 0, "act_clip_count_batched": L,
-                          "block_sparse_matmul": 0, "conv_gemm": 0}
+                          "block_sparse_matmul": 0, "conv_gemm": 0,
+                          "conv_igemm": 20}
 
 
 @pytest.mark.cuda

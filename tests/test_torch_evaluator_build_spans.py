@@ -2,9 +2,9 @@
 ``evaluator.build`` span with its four ``build.*`` children, each once;
 the counter ``evaluator.act_sample_elems`` at the elements of every
 prunable layer's input over the images; ``pass.clip_launches`` at the
-batched clip's launches in a pass and ``pass.conv_gemms`` at its 1 x 1
-stride-1 convolutions; and without a tracer the same set-up
-bits."""
+batched clip's launches in a pass, ``pass.conv_gemms`` at its 1 x 1
+stride-1 convolutions and ``pass.conv_igemms`` at the implicit-GEMM
+kernel's launches; and without a tracer the same set-up bits."""
 import numpy as np
 import pytest
 import torch
@@ -77,31 +77,40 @@ def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
     with each call counted as the card's wrapper counts a launch, a pass
     counts one per prunable layer. ``pass.conv_gemms`` counts the 1 x 1
     stride-1 layers of a pass of more than one proposal, whose product
-    runs on any device."""
+    runs on any device; ``pass.conv_igemms`` the implicit-GEMM kernel's
+    launches, one per other ``conv`` layer of such a pass (none at B =
+    1), counted as the clip's."""
     arch, _, ev, _ = traced
     L = len(ev.prunable)
     G = {"resnet18": 0, "resnet50": 33}[arch]
+    I = {"resnet18": 20, "resnet50": 20}[arch]
     rng = np.random.default_rng(0)
     s = rng.uniform(0, 0.9, (2, L)).astype(np.float32)
     tracer = Tracer()
     with use_tracer(tracer):
         ev._pass(s, s, None, 2)
-    assert tracer.counters == {"pass.clip_launches": 0, "pass.conv_gemms": G}
-    plain = kernels.ops.act_clip_batched
-    # the process's own launch count is put back after the test
-    monkeypatch.setitem(kernels._LAUNCHED, "act_clip_count_batched",
-                        kernels.launch_counts()["act_clip_count_batched"])
+    assert tracer.counters == {"pass.clip_launches": 0, "pass.conv_gemms": G,
+                               "pass.conv_igemms": 0}
+    # the process's own launch counts are put back after the test
+    for name in ("act_clip_count_batched", "conv_igemm"):
+        monkeypatch.setitem(kernels._LAUNCHED, name,
+                            kernels.launch_counts()[name])
 
-    def launched(x, taus):
-        out = plain(x, taus)
-        kernels._LAUNCHED["act_clip_count_batched"] += 1
-        return out
-    monkeypatch.setattr(kernels.ops, "act_clip_batched", launched)
+    def launching(name, plain):
+        def launched(*args):
+            out = plain(*args)
+            kernels._LAUNCHED[name] += 1
+            return out
+        return launched
+    monkeypatch.setattr(kernels.ops, "act_clip_batched", launching(
+        "act_clip_count_batched", kernels.ops.act_clip_batched))
+    monkeypatch.setattr(kernels.ops, "conv_igemm", launching(
+        "conv_igemm", kernels.ops.conv_igemm))
     with use_tracer(tracer):
         ev._pass(s, s, None, 2)
         ev._pass(s[:1], s[:1], None, 1)
-    assert tracer.counters == {"pass.clip_launches": 2 * L,
-                               "pass.conv_gemms": 2 * G}
+    want = {"pass.clip_launches": 2 * L, "pass.conv_gemms": 2 * G,
+            "pass.conv_igemms": I}
+    assert tracer.counters == want
     ev._pass(s, s, None, 2)
-    assert tracer.counters == {"pass.clip_launches": 2 * L,
-                               "pass.conv_gemms": 2 * G}
+    assert tracer.counters == want

@@ -192,3 +192,12 @@ def test_device_ops_per_round_sum_names_cut_alike_longest_first():
     assert list(got) == ["k" * 120, "copy"]
     assert got["k" * 120] == pytest.approx([15.0, 2.0])
     assert got["copy"] == pytest.approx([1.0, 2.0])
+
+
+def test_per_pass_counters_divide_by_the_window_s_passes():
+    counters = {"pass.clip_launches": 210, "pass.conv_igemms": 200,
+                "search.trials": 80}
+    assert tool.per_pass(counters, 10) == {"clip_launches_per_pass": 21.0,
+                                           "conv_gemms_per_pass": 0.0,
+                                           "conv_igemms_per_pass": 20.0}
+    assert tool.per_pass(counters, 0) == {}

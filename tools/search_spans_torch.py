@@ -20,7 +20,8 @@ with a ``repro_torch.obs.Tracer`` installed.
   ``tpe.kde_numpy``: which engine the TPE's KDE ran on;
   ``pass.clip_launches``: the batched clip kernel's launches;
   ``pass.conv_gemms``: the pass's convolutions that ran as one product;
-  both also per ``evaluate.pass`` span).
+  ``pass.conv_igemms``: the implicit-GEMM kernel's launches; each also
+  per ``evaluate.pass`` span).
 * Every device operation of the profiled search by name, ms and calls a
   round (``device_ops_ms_per_round``).
 * The set-up: the tracer is installed before ``harness.setup``, so the
@@ -168,6 +169,16 @@ def device_ops(kernels: Dict[str, list], rounds: int
         t[0] += 1e3 * s / max(rounds, 1)
         t[1] += calls / max(rounds, 1)
     return dict(sorted(ops.items(), key=lambda kv: -kv[1][0]))
+
+
+def per_pass(counters: Dict[str, float], passes: int) -> Dict[str, float]:
+    """The pass counters over the window's ``evaluate.pass`` spans:
+    ``<name>_per_pass`` for each ``pass.<name>`` (a counter the window
+    never touched reads 0); nothing without a pass."""
+    if not passes:
+        return {}
+    return {f"{name}_per_pass": counters.get(f"pass.{name}", 0) / passes
+            for name in ("clip_launches", "conv_gemms", "conv_igemms")}
 
 
 def profile_readings(prof, label_idle: Dict[str, float]
@@ -349,11 +360,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                        for k, v in tracer.counters.items()}
     passes = sum(e["name"] == "evaluate.pass" and e["t0"] >= w.t0
                  for e in tracer.events)
-    if passes:
-        out["clip_launches_per_pass"] = \
-            out["counters"].get("pass.clip_launches", 0) / passes
-        out["conv_gemms_per_pass"] = \
-            out["counters"].get("pass.conv_gemms", 0) / passes
+    out.update(per_pass(out["counters"], passes))
     out["span_cost_us"] = span_cost_us(dev)
     out["spans_a_round"] = sum(e["name"] not in ("trial", "search")
                                for e in recorded) / max(
