@@ -23,7 +23,8 @@ def sub_seed(seed: int, *path: int) -> int:
 
 def _shapes(layers: Sequence[Layer]):
     """(layer, key, shape, std) of every weight: He-normal over the fan-in
-    (sigmoid's input of a squeeze-and-excite: LeCun), biases zero."""
+    (sigmoid's input of a squeeze-and-excite: LeCun). ``pool``, ``gap``,
+    ``add`` and ``ln`` rows have none; a row of another kind raises."""
     for l in layers:
         if l.kind == "conv":
             yield l.name, "w", (l.k, l.k, l.cin, l.cout), \
@@ -35,14 +36,20 @@ def _shapes(layers: Sequence[Layer]):
         elif l.kind == "se":
             yield l.name, "w1", (l.cin, l.se_mid), math.sqrt(2.0 / l.cin)
             yield l.name, "w2", (l.se_mid, l.cin), math.sqrt(1.0 / l.se_mid)
+        elif l.kind not in ("pool", "gap", "add", "ln"):
+            raise ValueError(f"unknown layer kind {l.kind!r} ({l.name})")
 
 
-def _biases(l: Layer):
+def _constants(l: Layer):
+    """(key, length, value) of each parameter made outside the normal
+    draw: biases 0; a LayerNorm's gain 1 and shift 0, as published."""
     if l.kind in ("conv", "dwconv", "linear"):
-        return {"b": l.cout}
+        return (("b", l.cout, 0.0),)
     if l.kind == "se":
-        return {"b1": l.se_mid, "b2": l.cin}
-    return {}
+        return (("b1", l.se_mid, 0.0), ("b2", l.cin, 0.0))
+    if l.kind == "ln":
+        return (("g", l.cout, 1.0), ("b", l.cout, 0.0))
+    return ()
 
 
 def make(layers: Sequence[Layer], seed: int, images: int, img_res: int,
@@ -63,9 +70,9 @@ def make(layers: Sequence[Layer], seed: int, images: int, img_res: int,
             flat[at:at + n].view(shape).mul_(std)
         at += n
     for l in layers:
-        for key, n in _biases(l).items():
-            params.setdefault(l.name, {})[key] = torch.zeros(
-                n, dtype=torch.float32, device=device)
+        for key, n, value in _constants(l):
+            params.setdefault(l.name, {})[key] = torch.full(
+                (n,), value, dtype=torch.float32, device=device)
     gen.manual_seed(sub_seed(seed, 1))
     imgs = torch.randn((images, img_res, img_res, 3), generator=gen,
                        device=device)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hassbench.reference.layers import INPUT, Layer
+from hassbench.reference.layers import INPUT, LN_EPS, Layer
 
 PRECISIONS = ("float32", "tf32")
 #: the activation quantile grid of the calibration pass (256 points)
@@ -71,7 +71,11 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
         return F.relu(x)
     if name == "hswish":
         return F.hardswish(x)
-    return x
+    if name == "gelu":
+        return F.gelu(x)            # the exact, erf form
+    if name == "none":
+        return x
+    raise ValueError(f"unknown activation {name!r}")
 
 
 def _same_pads(size: int, k: int, stride: int):
@@ -148,11 +152,22 @@ class Reference:
         groups = layer.cout if layer.kind == "dwconv" else 1
         x, w = self._operands(x, w.permute(3, 2, 0, 1))
         return F.conv2d(x, w, None, stride=layer.stride,
-                        padding=(layer.k - 1) // 2, groups=groups)
+                        padding=layer.padding, groups=groups)
 
     def _mm(self, x, w):
         x, w = self._operands(x, w)
         return x @ w
+
+    @staticmethod
+    def _layer_norm(x, p):
+        """Over the channels of each pixel of an NCHW x, or over the
+        features of a pooled (N, C) x."""
+        if x.dim() == 2:
+            return F.layer_norm(x, x.shape[1:], p["g"], p["b"], LN_EPS)
+        y = x.permute(0, 2, 3, 1)
+        y = F.layer_norm(y, y.shape[3:], p["g"], p["b"], LN_EPS)
+        # contiguous NCHW, the layout every other row hands a convolution
+        return y.permute(0, 3, 1, 2).contiguous()
 
     def _forward(self, weights: Dict[str, torch.Tensor],
                  taus: Dict[str, float], keep_inputs: bool = False):
@@ -200,6 +215,10 @@ class Reference:
                 x = x * z[:, :, None, None]
             elif l.kind == "add":
                 x = _act(x + outs[l.residual_from], l.act)
+            elif l.kind == "ln":
+                x = _act(self._layer_norm(x, p), l.act)
+            else:
+                raise ValueError(f"unknown layer kind {l.kind!r} ({l.name})")
             outs[l.name] = x
             last = l.name
         return outs[last], inputs, zeros
