@@ -20,7 +20,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
            (conv_igemm) at each distinct shape of the 20 ResNet-18 layers it
            takes in a batched pass of 8 proposals, TF32 off: y bit for bit
            against its plain version (cuDNN's grouped convolution), bias
-           and activation included
+           and activation included, and a second launch equal to the
+           first, each shape timed beside its plain version, the library
+           and the bound; the same at ConvNeXt-T's four routed shapes (the
+           unpadded 4 x 4 stride-4 stem, the 2 x 2 stride-2 downsampling
+           layers), summed as a second group
   kernel_costs  the pattern decode-cost tables (``kernels.kernel_costs``)
            measured on the card at the default probe shape and at the main
            path's (a ResNet-18 layer-3 im2col product): each probe's time,
@@ -388,19 +392,24 @@ def phase_kernels_clip_batched(dev):
 #: the layers of ResNet-18's batched pass that the implicit-GEMM kernel takes
 #: (``cnn.is_igemm``: 16 3 x 3s, 3 strided 1 x 1 projections, the stem)
 IGEMM_LAYERS = 20
+#: the same of ConvNeXt-T's: the unpadded 4 x 4 stride-4 stem and the three
+#: 2 x 2 stride-2 downsampling layers
+CONVNEXT_IGEMM_LAYERS = 4
 
 
 def phase_kernels_conv_igemm(dev):
-    """The implicit-GEMM kernel at the layers it takes in each batched pass
-    of the search phase (ResNet-18 at 224 x 224, 8 proposals of 8 images,
-    float32 with TF32 off as the evaluator sets it), one case per distinct
-    shape: against its plain version (the HWIO copy and grouped cuDNN
-    convolution the pass ran before the kernel, with the layer's bias and
-    activation) bit for bit, a second launch equal to the first. Then each
-    shape timed as the pass calls it (device time in a CUDA graph), beside
-    the plain version, the library (one grouped cuDNN convolution on its
-    own weight layout, without bias or activation) and the bound, each
-    summed over the layers of that shape."""
+    """The implicit-GEMM kernel at the layers it takes in a batched pass of
+    ResNet-18 (the search phase's model) and of ConvNeXt-T, at 224 x 224,
+    8 proposals of 8 images, float32 with TF32 off as the evaluator sets
+    it, one case per distinct shape and padding: against its plain version
+    (the HWIO copy and grouped cuDNN convolution the pass ran before the
+    kernel, with the layer's bias and activation) bit for bit, a second
+    launch equal to the first. Then each shape timed as the pass calls it
+    (device time in a CUDA graph), beside the plain version, the library
+    (one grouped cuDNN convolution on its own weight layout, without bias
+    or activation) and the bound, each summed over the model's layers of
+    that shape: ResNet-18's at the top level, ConvNeXt-T's under
+    ``convnext_t``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core.hass import _float32_convolutions
@@ -408,69 +417,83 @@ def phase_kernels_conv_igemm(dev):
     from repro_torch.kernels.bench_util import (conv_bound_ms, device_ms,
                                                 time_ms)
     from repro_torch.models import cnn
-    B, seen = SEARCH_BATCH, {}
-    for s in cnn.build_specs(get_config("resnet18")):
-        if cnn.is_igemm(s, B):
-            key = (s.cin, s.cout, s.k, s.stride, s.in_hw, s.act == "relu")
-            seen[key] = seen.get(key, 0) + 1
-    if sum(seen.values()) != IGEMM_LAYERS:
-        fail(f"ResNet-18's routed layers: {seen}")
+    B, models = SEARCH_BATCH, {}
+    for arch, want in (("resnet18", IGEMM_LAYERS),
+                       ("convnext_t", CONVNEXT_IGEMM_LAYERS)):
+        seen = {}
+        for s in cnn.build_specs(get_config(arch)):
+            if cnn.is_igemm(s, B):
+                key = (s.cin, s.cout, s.k, s.stride, s.padding, s.in_hw,
+                       s.act == "relu")
+                seen[key] = seen.get(key, 0) + 1
+        if sum(seen.values()) != want:
+            fail(f"{arch}'s routed layers: {seen}")
+        models[arch] = seen
     gen = torch.Generator(device="cpu")
     gen.manual_seed(9)
-    rows, tot, max_err = [], dict.fromkeys(
-        ("ms", "wrapper_ms", "plain_ms", "plain_device_ms", "library_ms",
-         "bound_ms"), 0.0), 0.0
+    timed, max_err = {}, 0.0
     with torch.no_grad(), _float32_convolutions():
-        for (cin, cout, k, stride, hw, relu), n in seen.items():
-            x = torch.randn((CALIB_BATCH, hw, hw, B * cin),
-                            generator=gen).to(dev)
-            w = (torch.randn((B, k, k, cin, cout), generator=gen)
-                 / (k * cin ** 0.5)).to(dev)
-            b = (torch.randn((cout,), generator=gen) / 4).to(dev)
-            y = ops.conv_igemm(x, w, b, stride, relu)
-            y_ref = ref.conv_igemm_ref(x, w, b, stride, relu)
-            again = ops.conv_igemm(x, w, b, stride, relu)
-            torch.cuda.synchronize()
-            if not torch.equal(y, y_ref) or not torch.equal(y, again):
-                fail(f"conv_igemm != plain at {cin}x{cout} k{k} s{stride} "
-                     f"@{hw}: gap {float((y - y_ref).abs().max())}")
-            max_err = max(max_err, float((y - y_ref).abs().max()))
-            oihw = w.permute(0, 4, 3, 1, 2).reshape(
-                B * cout, cin, k, k).contiguous()
-            nchw = x.permute(0, 3, 1, 2)
-            bound, by = conv_bound_ms(x, w, y)
-            t = {"ms": device_ms(
-                     lambda: ops.conv_igemm(x, w, b, stride, relu)),
-                 "wrapper_ms": time_ms(
-                     lambda: ops.conv_igemm(x, w, b, stride, relu)),
-                 "plain_ms": time_ms(
-                     lambda: ref.conv_igemm_ref(x, w, b, stride, relu)),
-                 "plain_device_ms": device_ms(
-                     lambda: ref.conv_igemm_ref(x, w, b, stride, relu)),
-                 "library_ms": device_ms(lambda: F.conv2d(
-                     nchw, oihw, None, stride=stride, padding=(k - 1) // 2,
-                     groups=B)),
-                 "bound_ms": bound}
-            rows.append({"shape": [cin, cout, k, stride, hw], "relu": relu,
-                         "layers": n, "x": list(x.shape), **t,
-                         "bound_by": by})
-            for key, v in t.items():
-                tot[key] += n * v
-            del x, w, y, y_ref, again, oihw, nchw
+        for arch, seen in models.items():
+            rows, tot = [], dict.fromkeys(
+                ("ms", "wrapper_ms", "plain_ms", "plain_device_ms",
+                 "library_ms", "bound_ms"), 0.0)
+            for (cin, cout, k, stride, pad, hw, relu), n in seen.items():
+                x = torch.randn((CALIB_BATCH, hw, hw, B * cin),
+                                generator=gen).to(dev)
+                w = (torch.randn((B, k, k, cin, cout), generator=gen)
+                     / (k * cin ** 0.5)).to(dev)
+                b = (torch.randn((cout,), generator=gen) / 4).to(dev)
+                y = ops.conv_igemm(x, w, b, stride, relu, pad)
+                y_ref = ref.conv_igemm_ref(x, w, b, stride, relu, pad)
+                again = ops.conv_igemm(x, w, b, stride, relu, pad)
+                torch.cuda.synchronize()
+                if not torch.equal(y, y_ref) or not torch.equal(y, again):
+                    fail(f"conv_igemm != plain at {arch}'s {cin}x{cout} k{k} "
+                         f"s{stride} pad {pad} @{hw}: gap "
+                         f"{float((y - y_ref).abs().max())}")
+                max_err = max(max_err, float((y - y_ref).abs().max()))
+                oihw = w.permute(0, 4, 3, 1, 2).reshape(
+                    B * cout, cin, k, k).contiguous()
+                nchw = x.permute(0, 3, 1, 2)
+                bound, by = conv_bound_ms(x, w, y)
+                t = {"ms": device_ms(
+                         lambda: ops.conv_igemm(x, w, b, stride, relu, pad)),
+                     "wrapper_ms": time_ms(
+                         lambda: ops.conv_igemm(x, w, b, stride, relu, pad)),
+                     "plain_ms": time_ms(
+                         lambda: ref.conv_igemm_ref(x, w, b, stride, relu,
+                                                    pad)),
+                     "plain_device_ms": device_ms(
+                         lambda: ref.conv_igemm_ref(x, w, b, stride, relu,
+                                                    pad)),
+                     "library_ms": device_ms(lambda: F.conv2d(
+                         nchw, oihw, None, stride=stride, padding=pad,
+                         groups=B)),
+                     "bound_ms": bound}
+                rows.append({"shape": [cin, cout, k, stride, hw], "pad": pad,
+                             "relu": relu, "layers": n, "x": list(x.shape),
+                             **t, "bound_by": by})
+                for key, v in t.items():
+                    tot[key] += n * v
+                del x, w, y, y_ref, again, oihw, nchw
+            timed[arch] = {**tot, "bound_by": "/".join(
+                               sorted({r["bound_by"] for r in rows})),
+                           "layers": sum(seen.values()),
+                           "timed_over": f"the {sum(seen.values())} routed "
+                                         f"layers of one batched pass of 8 "
+                                         f"proposals of 8 images, f32, "
+                                         f"summed",
+                           "shapes": rows}
     return {"name": "conv_igemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/conv_igemm.cu",
-            "replaces": None, "equal": True, "cases": len(rows),
+            "replaces": None, "equal": True,
+            "cases": sum(len(t["shapes"]) for t in timed.values()),
             "max_abs_err": max_err,
             "tolerance": "bit-equal to the plain version (cuDNN's grouped "
                          "convolution, TF32 off), bias and activation "
                          "included",
-            **tot, "bound_by": "/".join(sorted({r["bound_by"]
-                                                for r in rows})),
-            "proposals": B,
-            "layers": IGEMM_LAYERS,
-            "timed_over": "the 20 routed layers of one batched pass of 8 "
-                          "proposals of 8 images, f32, summed",
-            "shapes": rows}
+            **timed["resnet18"], "proposals": B,
+            "convnext_t": timed["convnext_t"]}
 
 
 def matmul_device_ms(sw, x, budget_ms: float = 60.0) -> float:

@@ -17,7 +17,7 @@ from repro_torch.configs.chameleon_34b import CONFIG as _chameleon_34b
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6_1_6b
 from repro_torch.configs.whisper_base import CONFIG as _whisper_base
 from repro_torch.configs.zamba2_1_2b import CONFIG as _zamba2_1_2b
-from repro_torch.configs.paper_cnns import PAPER_CNNS
+from repro_torch.configs.paper_cnns import CONVNEXT_T, PAPER_CNNS
 
 ASSIGNED: Dict[str, ModelConfig] = {
     c.name: c for c in (
@@ -27,7 +27,7 @@ ASSIGNED: Dict[str, ModelConfig] = {
     )
 }
 REGISTRY: Dict[str, ModelConfig] = dict(ASSIGNED)
-REGISTRY.update({c.name: c for c in PAPER_CNNS})
+REGISTRY.update({c.name: c for c in PAPER_CNNS + (CONVNEXT_T,)})
 
 
 def _canon(name: str) -> str:

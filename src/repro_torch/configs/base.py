@@ -85,7 +85,7 @@ class ModelConfig:
     act: str = "silu"                    # silu | gelu | relu2 (rwkv)
     dtype: str = "bfloat16"
     # CNN-only (paper's own benchmark models)
-    cnn_arch: str = ""                   # resnet18 | resnet50 | mobilenetv2 | mobilenetv3s | mobilenetv3l
+    cnn_arch: str = ""                   # resnet18 | resnet50 | mobilenetv2 | mobilenetv3s | mobilenetv3l | convnext_t
     img_res: int = 224
     num_classes: int = 1000
 

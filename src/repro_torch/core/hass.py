@@ -1046,14 +1046,16 @@ class CNNEvaluator:
         ``pass.clip_launches``, the batched clip kernel's launches in the
         pass (one per prunable layer on the card, none on the CPU), and
         ``pass.conv_gemms``, its convolutions that ran as one product (one
-        per 1 x 1 stride-1 layer where B > 1, on any device), and
+        per 1 x 1 stride-1 layer where B > 1, on any device),
         ``pass.conv_igemms``, the implicit-GEMM kernel's launches (one per
-        other ``conv`` layer where B > 1 on the card, none on the CPU)."""
+        other ``conv`` layer where B > 1 on the card, none on the CPU), and
+        ``pass.layer_norms``, its LayerNorms (one per ``ln`` layer at any
+        B, on any device)."""
         tr = get_tracer()
         with tr.span("evaluate.pass"):
             if tr.enabled:
                 launched = kernels.launch_counts()
-                gemms = kernels.product_counts()["conv_gemm"]
+                products = kernels.product_counts()
             host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
                     (s_w, s_a) + (() if codes is None else
                                   (codes.astype(np.int64),))]
@@ -1076,10 +1078,13 @@ class CNNEvaluator:
                 tr.count("pass.clip_launches",
                          now["act_clip_count_batched"] -
                          launched["act_clip_count_batched"])
-                tr.count("pass.conv_gemms", kernels.product_counts()[
-                    "conv_gemm"] - gemms)
+                after = kernels.product_counts()
+                tr.count("pass.conv_gemms",
+                         after["conv_gemm"] - products["conv_gemm"])
                 tr.count("pass.conv_igemms",
                          now["conv_igemm"] - launched["conv_igemm"])
+                tr.count("pass.layer_norms",
+                         after["layer_norm"] - products["layer_norm"])
         self.stats_passes += 1
         self.stats_forwards += n_real
         L = len(self.names)

@@ -13,9 +13,10 @@ plain version only for a tensor that lies on the CPU. Each kernel entry has
 a launch count here, which grows by one per wrapper call that launches it
 (``_count``); a call captured into a CUDA graph counts at each replay of the
 graph (``graph.CountedGraph``), not when it is captured. The same counts
-keep one library product that is no kernel of this package: ``conv_gemm``,
-a convolution that ``models.cnn`` ran as one strided-batched product
-(``product_counts``; ``launch_counts`` leaves it out).
+keep two library products that are no kernel of this package:
+``conv_gemm``, a convolution that ``models.cnn`` ran as one
+strided-batched product, and ``layer_norm``, one LayerNorm of its model
+step (``product_counts``; ``launch_counts`` leaves them out).
 """
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ import torch
 #: per kernel entry: wrapper calls that launched it, and wrapper calls made
 #: while the current stream captured a CUDA graph
 _LAUNCHED = {"act_clip_count": 0, "act_clip_count_batched": 0,
-             "block_sparse_matmul": 0, "conv_gemm": 0, "conv_igemm": 0}
+             "block_sparse_matmul": 0, "conv_gemm": 0, "conv_igemm": 0,
+             "layer_norm": 0}
 _CAPTURED = dict.fromkeys(_LAUNCHED, 0)
 #: the library products among them
-_PRODUCTS = ("conv_gemm",)
+_PRODUCTS = ("conv_gemm", "layer_norm")
 
 
 def _count(name: str, cuda: bool = True) -> None:

@@ -40,7 +40,7 @@ _PTR, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _CLIP = (_PTR, _F32, _PTR, _PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _PTR)
 _CLIP_BATCHED = (_PTR,) * 5 + (_LL, _INT, _INT, _INT, _INT, _PTR)
 _MATMUL = (_PTR,) * 7 + (_LL,) * 4 + (_INT,) * 7 + (_PTR,)
-_CONV = (_PTR,) * 4 + (_INT,) * 10 + (_PTR,)
+_CONV = (_PTR,) * 4 + (_INT,) * 11 + (_PTR,)
 _SIGNATURES = {
     "hass_act_clip_count_f32": _CLIP,
     "hass_act_clip_count_bf16": _CLIP,

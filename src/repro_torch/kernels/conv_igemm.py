@@ -25,9 +25,9 @@ _FN: list = []
 _SMS: dict = {}
 
 
-def out_size(size: int, k: int, stride: int) -> int:
-    """An output side: padding (k - 1) // 2 on each side of ``size``."""
-    return (size + 2 * ((k - 1) // 2) - k) // stride + 1
+def out_size(size: int, k: int, stride: int, pad: int) -> int:
+    """An output side: padding ``pad`` on each side of ``size``."""
+    return (size + 2 * pad - k) // stride + 1
 
 
 def tile_m(M: int, cout: int, B: int, sms: int) -> int:
@@ -49,14 +49,15 @@ def sm_count(device: torch.device) -> int:
 
 
 def conv_igemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-               stride: int, relu: bool = False) -> torch.Tensor:
+               stride: int, relu: bool, pad: int) -> torch.Tensor:
     """x: NHWC (N, H, W, B * cin) float32; w: (B, k, k, cin, cout) float32,
     group b's weights in HWIO order; bias: (cout,) float32, shared by the
     groups -> NHWC (N, Ho, Wo, B * cout), group b's outputs at [b * cout,
     (b + 1) * cout): each group's convolution at ``stride`` with padding
-    (k - 1) // 2 on every side, plus the bias, then relu if ``relu``. On
-    the card one launch for all B groups, each output summed in the order
-    of cuDNN's float32 kernel for that layer (channel-major for a 3 x 3,
+    ``pad`` on every side (the layer's ``LayerSpec.padding``), plus the
+    bias, then relu if ``relu``. On the card one launch for all B groups,
+    each output summed in the order of cuDNN's float32 kernel for that
+    layer (channel-major for a 3 x 3 or 2 x 2 layer with cin % 4 == 0,
     tap-major for a stem), so the result is the plain version's on the
     card bit for bit."""
     if x.dim() != 4 or w.dim() != 5 or bias.dim() != 1:
@@ -74,8 +75,10 @@ def conv_igemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if not x.device == w.device == bias.device:
         raise ValueError(f"x, w and bias lie on {x.device}, {w.device}, "
                          f"{bias.device}")
+    if not 0 <= pad < k:
+        raise ValueError(f"padding {pad} of a {k} x {k} window")
     if x.device.type == "cpu":
-        return ref.conv_igemm_ref(x, w, bias, stride, relu)
+        return ref.conv_igemm_ref(x, w, bias, stride, relu, pad)
     if x.device.type != "cuda":
         raise ValueError(f"conv_igemm runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and w.is_contiguous() and
@@ -88,13 +91,13 @@ def conv_igemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"the kernel copies w in 16-byte runs: cout "
                          f"({cout}) must be a multiple of 4 and w aligned")
     n, H, W, _ = x.shape
-    Ho, Wo = out_size(H, k, stride), out_size(W, k, stride)
+    Ho, Wo = out_size(H, k, stride, pad), out_size(W, k, stride, pad)
     y = x.new_empty((n, Ho, Wo, B * cout))
     if not _FN:
         _FN.append(build.lib().hass_conv_igemm_f32)
     with build.device_guard(x):
         err = _FN[0](x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                     y.data_ptr(), n, H, W, cin, cout, k, stride, B,
+                     y.data_ptr(), n, H, W, cin, cout, k, stride, pad, B,
                      int(relu),
                      tile_m(n * Ho * Wo, cout, B, sm_count(x.device)),
                      torch.cuda.current_stream(x.device).cuda_stream)

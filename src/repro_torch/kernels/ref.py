@@ -122,17 +122,17 @@ def block_sparse_matmul_plan_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv_igemm_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                   stride: int, relu: bool) -> torch.Tensor:
+                   stride: int, relu: bool, pad: int) -> torch.Tensor:
     """x: NHWC (N, H, W, B * cin); w: (B, k, k, cin, cout), the B groups'
     weights; bias: (cout,), shared -> NHWC (N, Ho, Wo, B * cout), group b's
-    outputs at [b * cout, (b + 1) * cout), padding (k - 1) // 2 on every
-    side: the kernel's function, as the batched forward ran it before the
-    kernel. The B weights copied into one HWIO weight of B * cout outputs,
-    one grouped convolution on channels-first views, the bias repeated B
-    times, then relu or nothing."""
+    outputs at [b * cout, (b + 1) * cout), padding ``pad`` on every side:
+    the kernel's function, as the batched forward ran it before the kernel.
+    The B weights copied into one HWIO weight of B * cout outputs, one
+    grouped convolution on channels-first views, the bias repeated B times,
+    then relu or nothing."""
     B, k, _, cin, cout = w.shape
     hwio = w.permute(1, 2, 3, 0, 4).reshape(k, k, cin, B * cout)
     y = F.conv2d(x.permute(0, 3, 1, 2), hwio.permute(3, 2, 0, 1), None,
-                 stride=stride, padding=(k - 1) // 2, groups=B)
+                 stride=stride, padding=pad, groups=B)
     y = y.permute(0, 2, 3, 1).contiguous() + bias.repeat(B)
     return F.relu(y) if relu else y

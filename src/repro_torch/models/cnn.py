@@ -1,11 +1,15 @@
-"""The paper's benchmark CNNs: ResNet-18/50, MobileNetV2, MobileNetV3-S/L.
+"""The paper's benchmark CNNs: ResNet-18/50, MobileNetV2, MobileNetV3-S/L,
+and ConvNeXt-T, a LayerNorm / GELU ConvNet of ResNet-50's class.
 
 Models are described as an explicit dataflow list of ``LayerSpec``s and
 executed by a small interpreter, so the HASS search and the DSE consume
 *exactly* the layers the forward pass runs (the paper's Fig. 4 ResNet-18
 workload is the 16 3x3 convs this spec produces — matching the paper's count).
 BatchNorm is folded into conv bias (standard for FPGA deployment flows;
-fpgaConvNet folds BN as well).
+fpgaConvNet folds BN as well). An ``ln`` layer is a LayerNorm over each
+pixel's channels (or a pooled row's features) with gain ``g`` and shift
+``b``. A convolution pads ``pad`` pixels on every side, ``(k - 1) // 2``
+where the spec gives none.
 
 Each spec names its input: ``input_from=None`` means "previous layer output";
 ``add`` layers sum their sequential input with ``residual_from``'s output.
@@ -33,22 +37,33 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import act_clip, dense_init, softmax_xent
 
 INPUT = "__input__"
+#: the eps of every LayerNorm: ConvNeXt's, which facebookresearch/ConvNeXt
+#: ``models/convnext.py`` sets to 1e-6 for the stem's, the downsampling
+#: layers', each block's and the head's
+LN_EPS = 1e-6
 
 
 @dataclass(frozen=True)
 class LayerSpec:
     name: str
-    kind: str                 # conv | dwconv | linear | pool | gap | add | se
+    kind: str                 # conv | dwconv | linear | pool | gap | add | se | ln
     cin: int = 0
     cout: int = 0
     k: int = 1
     stride: int = 1
     in_hw: int = 0
     out_hw: int = 0
-    act: str = "relu"         # relu | hswish | none
+    act: str = "relu"         # relu | hswish | gelu (exact, erf) | none
     input_from: Optional[str] = None
     residual_from: Optional[str] = None
     se_ratio: float = 0.0
+    pad: Optional[int] = None
+
+    @property
+    def padding(self) -> int:
+        """Pixels a convolution pads on each side: ``pad``, or
+        ``(k - 1) // 2`` where the spec gives none."""
+        return (self.k - 1) // 2 if self.pad is None else self.pad
 
     @property
     def macs(self) -> int:
@@ -209,6 +224,57 @@ def _mbv3(small, res, num_classes) -> List[LayerSpec]:
     return specs
 
 
+def _convnext(res, num_classes) -> List[LayerSpec]:
+    """ConvNeXt-T (Liu et al. 2022, arXiv:2201.03545; facebookresearch/
+    ConvNeXt ``models/convnext.py``): a 4 x 4 stride-4 patchify stem with
+    no padding and a LayerNorm; stages of (3, 3, 9, 3) blocks at widths
+    (96, 192, 384, 768), each stage after the first entered through a
+    LayerNorm and a 2 x 2 stride-2 convolution with no padding; each block
+    a 7 x 7 depthwise convolution, a LayerNorm, a 1 x 1 to four times the
+    width with the exact GELU, a 1 x 1 back (the layer scale folded into
+    its weights and bias) and the residual add; global pool, LayerNorm,
+    classifier. The official code's pointwise ``nn.Linear`` layers are 1 x
+    1 convolutions here: the same products."""
+    depths, widths = (3, 3, 9, 3), (96, 192, 384, 768)
+    specs: List[LayerSpec] = []
+    hw, cin = res // 4, widths[0]
+    specs.append(LayerSpec("stem", "conv", 3, cin, 4, 4, res, hw, act="none",
+                           pad=0))
+    specs.append(LayerSpec("stem_ln", "ln", cin, cin, in_hw=hw, out_hw=hw,
+                           act="none"))
+    last = "stem_ln"
+    for stage, (n, c) in enumerate(zip(depths, widths)):
+        if stage:
+            specs.append(LayerSpec(f"s{stage}ds_ln", "ln", cin, cin,
+                                   in_hw=hw, out_hw=hw, act="none"))
+            specs.append(LayerSpec(f"s{stage}ds", "conv", cin, c, 2, 2, hw,
+                                   hw // 2, act="none", pad=0))
+            hw //= 2
+            last = f"s{stage}ds"
+        for b in range(n):
+            tag = f"s{stage}b{b}"
+            block_in = last
+            specs.append(LayerSpec(f"{tag}dw", "dwconv", c, c, 7, 1, hw, hw,
+                                   act="none"))
+            specs.append(LayerSpec(f"{tag}ln", "ln", c, c, in_hw=hw,
+                                   out_hw=hw, act="none"))
+            specs.append(LayerSpec(f"{tag}pw1", "conv", c, 4 * c, 1, 1, hw,
+                                   hw, act="gelu"))
+            specs.append(LayerSpec(f"{tag}pw2", "conv", 4 * c, c, 1, 1, hw,
+                                   hw, act="none"))
+            specs.append(LayerSpec(f"{tag}add", "add", c, c, in_hw=hw,
+                                   out_hw=hw, act="none",
+                                   input_from=f"{tag}pw2",
+                                   residual_from=block_in))
+            last = f"{tag}add"
+        cin = c
+    specs.append(LayerSpec("gap", "gap", cin, cin, in_hw=hw, out_hw=1))
+    specs.append(LayerSpec("head_ln", "ln", cin, cin, in_hw=1, out_hw=1,
+                           act="none"))
+    specs.append(LayerSpec("fc", "linear", cin, num_classes, act="none"))
+    return specs
+
+
 def build_specs(cfg: ModelConfig) -> List[LayerSpec]:
     r, nc = cfg.img_res, cfg.num_classes
     if cfg.cnn_arch == "resnet18":
@@ -221,6 +287,8 @@ def build_specs(cfg: ModelConfig) -> List[LayerSpec]:
         return _mbv3(True, r, nc)
     if cfg.cnn_arch == "mobilenetv3l":
         return _mbv3(False, r, nc)
+    if cfg.cnn_arch == "convnext_t":
+        return _convnext(r, nc)
     raise ValueError(cfg.cnn_arch)
 
 
@@ -260,6 +328,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"
                               "w2": dense_init(gen, (mid, s.cin),
                                                device=device),
                               "b2": zeros(s.cin)}
+        elif s.kind == "ln":
+            params[s.name] = {
+                "g": torch.ones((s.cout,), dtype=torch.float32,
+                                device=device),
+                "b": zeros(s.cout)}
     return params
 
 
@@ -268,7 +341,23 @@ def _act(x, name):
         return F.relu(x)
     if name == "hswish":
         return F.hardswish(x)
-    return x
+    if name == "gelu":
+        return F.gelu(x)            # the exact, erf form
+    if name == "none":
+        return x
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _layer_norm(x, p, C: int):
+    """LayerNorm over each run of ``C`` channels of x's last dim (one
+    proposal's channels of a pixel, or of a pooled row), with the gain
+    ``p["g"]`` and shift ``p["b"]`` of C each: one launch for all of them,
+    over a ``(..., B, C)`` view, no copy. Counted as ``layer_norm`` in
+    ``kernels.product_counts``."""
+    y = F.layer_norm(x.reshape(x.shape[:-1] + (-1, C)), (C,), p["g"],
+                     p["b"], LN_EPS)
+    kernels._count("layer_norm", x.is_cuda)
+    return y.reshape(x.shape)
 
 
 def _same_pads(size: int, k: int, stride: int):
@@ -304,8 +393,9 @@ def is_igemm(s: LayerSpec, groups: int) -> bool:
     """A convolution that ``forward_batched`` runs through
     ``ops.conv_igemm``: every ``conv`` layer over more than one proposal
     that ``is_gemm`` leaves (the 3 x 3s, the strided 1 x 1 projections,
-    the stems). One proposal stays on cuDNN, for the reason ``is_gemm``
-    gives; the depthwise layers stay on cuDNN too."""
+    the stems, ConvNeXt-T's unpadded 4 x 4 stride-4 stem and 2 x 2
+    stride-2 downsampling layers). One proposal stays on cuDNN, for the
+    reason ``is_gemm`` gives; the depthwise layers stay on cuDNN too."""
     return s.kind == "conv" and groups > 1 and not is_gemm(s, groups)
 
 
@@ -360,7 +450,7 @@ def forward(cfg: ModelConfig, params, images, *, sparsity=None,
             x = act_clip(x, tau)
             p = params[s.name]
             groups = s.cout if s.kind == "dwconv" else 1
-            x = _conv(x, p["w"], s.stride, (s.k - 1) // 2, groups)
+            x = _conv(x, p["w"], s.stride, s.padding, groups)
             x = _act(x + p["b"], s.act)
         elif s.kind == "pool":
             (t, b), (l, r) = (_same_pads(x.shape[1], s.k, s.stride),
@@ -383,6 +473,10 @@ def forward(cfg: ModelConfig, params, images, *, sparsity=None,
             x = x * z[:, None, None, :]
         elif s.kind == "add":
             x = _act(x + outs[s.residual_from], s.act)
+        elif s.kind == "ln":
+            x = _act(_layer_norm(x, params[s.name], s.cout), s.act)
+        else:
+            raise ValueError(f"unknown layer kind {s.kind!r} ({s.name})")
         outs[s.name] = x
         last = s.name
     logits = outs[last]
@@ -404,7 +498,8 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
     kernel over the B groups, its bias and relu in the kernel
     (``ops.conv_igemm``, ``is_igemm``); every other convolution is one
     grouped convolution (``groups=B``, B * cout for ``dwconv``), a linear
-    layer one batched product, SE, pooling and
+    layer one batched product, a LayerNorm one launch over each
+    proposal's C channels (``_layer_norm``), SE, pooling and
     residual adds act per channel and so per proposal, and a
     prunable layer's clip and zero count is one ``ops.act_clip_batched``
     call. Returns (logits (N, B, classes), {layer: (B,) input zero
@@ -427,7 +522,7 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
         if is_igemm(s, B):
             relu = s.act == "relu"
             x = ops.conv_igemm(x, weights[s.name].contiguous(), p["b"],
-                               s.stride, relu)
+                               s.stride, relu, s.padding)
             if not relu:
                 x = _act(x, s.act)
         elif s.kind in ("conv", "dwconv"):
@@ -439,7 +534,7 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
                 else:
                     w = p["w"].repeat(1, 1, 1, B)
                     groups = B * s.cout
-                x = _conv(x, w, s.stride, (s.k - 1) // 2, groups)
+                x = _conv(x, w, s.stride, s.padding, groups)
             x = _act(x + p["b"].repeat(B), s.act)
         elif s.kind == "pool":
             (t, b), (l, r) = (_same_pads(x.shape[1], s.k, s.stride),
@@ -461,6 +556,10 @@ def forward_batched(cfg: ModelConfig, params, weights, images, taus):
             x = x * z[:, None, None, :]
         elif s.kind == "add":
             x = _act(x + outs[s.residual_from], s.act)
+        elif s.kind == "ln":            # each proposal's C channels
+            x = _act(_layer_norm(x, p, s.cout), s.act)
+        else:
+            raise ValueError(f"unknown layer kind {s.kind!r} ({s.name})")
         outs[s.name] = x
         last = s.name
     logits = outs[last]

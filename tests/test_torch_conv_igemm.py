@@ -97,9 +97,9 @@ def test_plain_version_is_the_grouped_convolution(cin, cout, k, stride, relu,
     hw = 9 if k == 7 else 5
     x, w, b = _inputs(B, cin, cout, k, hw, seed=cin + cout + k)
     with torch.no_grad():
-        got = ops.conv_igemm(x, w, b, stride, relu)
+        got = ops.conv_igemm(x, w, b, stride, relu, (k - 1) // 2)
         before = _before(x, w, b, stride, relu)
-    ho = igemm.out_size(hw, k, stride)
+    ho = igemm.out_size(hw, k, stride, (k - 1) // 2)
     assert got.shape == (2, ho, ho, B * cout) and got.is_contiguous()
     assert torch.equal(got, before)
     exact, _ = _exact(x, w, b, stride, relu)
@@ -139,9 +139,10 @@ def test_the_route_takes_exactly_the_other_conv_layers(arch, monkeypatch):
     seen = []
     plain = ops.conv_igemm
 
-    def recorded(x, w, b, stride, relu):
+    def recorded(x, w, b, stride, relu, pad):
+        assert pad == (w.shape[1] - 1) // 2
         seen.append((w.shape[1], w.shape[3], w.shape[4], stride))
-        return plain(x, w, b, stride, relu)
+        return plain(x, w, b, stride, relu, pad)
     monkeypatch.setattr(ops, "conv_igemm", recorded)
     with torch.no_grad():
         batched(2)
@@ -194,7 +195,7 @@ def test_tile_and_output_side_of_every_full_shape(cin, cout, k, stride, hw):
     128 output pixels where that gives two full waves of the card or more,
     else 64; every layer fills an H100 (132 SMs) at least once, and a card
     of half the SMs takes the 128-pixel tile wherever the H100 does."""
-    ho = igemm.out_size(hw, k, stride)
+    ho = igemm.out_size(hw, k, stride, (k - 1) // 2)
     assert ho == -(-hw // stride)
     M = 8 * ho * ho
     tm = igemm.tile_m(M, cout, 8, 132)
@@ -228,13 +229,14 @@ def test_the_bound_counts_the_layers_flops_and_bytes():
 def test_the_wrapper_refuses_what_is_no_grouped_convolution():
     x, w, b = _inputs(2, 16, 8, 3, 5)
     with pytest.raises(ValueError, match="not one grouped"):
-        ops.conv_igemm(x[..., :-1], w, b, 1)
+        ops.conv_igemm(x[..., :-1], w, b, 1, False, 1)
     with pytest.raises(ValueError, match="not one grouped"):
-        ops.conv_igemm(x, w, b[:-1], 1)
+        ops.conv_igemm(x, w, b[:-1], 1, False, 1)
     with pytest.raises(ValueError, match="takes x"):
-        ops.conv_igemm(x, w[0], b, 1)
+        ops.conv_igemm(x, w[0], b, 1, False, 1)
     with pytest.raises(TypeError, match="float32"):
-        ops.conv_igemm(x.double(), w.double(), b.double(), 1)
+        ops.conv_igemm(x.double(), w.double(), b.double(), 1, False,
+                       1)
 
 
 # ------------------------------------------------------------------ #
@@ -274,15 +276,16 @@ def test_cuda_kernel_is_full_float32_at_every_full_shape(cuda, cin, cout, k,
     = 3 at an odd side), which leaves the last tile of rows partly empty,
     within float32 rounding."""
     from repro_torch.core.hass import _float32_convolutions
+    pad = (k - 1) // 2
     for n, side in ((8, hw), (3, hw // 2 + 1)):
         x, w, b = _inputs(8, cin, cout, k, side, cuda, n=n, seed=cin * k)
         with torch.no_grad(), _float32_convolutions():
-            got = ops.conv_igemm(x, w, b, stride, False)
+            got = ops.conv_igemm(x, w, b, stride, False, pad)
             if n == 8:
                 for relu in (False, True):
                     assert torch.equal(
-                        ops.conv_igemm(x, w, b, stride, relu),
-                        ref.conv_igemm_ref(x, w, b, stride, relu))
+                        ops.conv_igemm(x, w, b, stride, relu, pad),
+                        ref.conv_igemm_ref(x, w, b, stride, relu, pad))
         torch.cuda.synchronize()
         _check_full_float32(got, x, w, b, stride)
 
@@ -298,11 +301,12 @@ def test_cuda_epilogue_is_relu_of_y_plus_b_bit_for_bit(cuda, cin, cout, k,
     sum y (its output with a zero bias), bit for bit; two launches are
     bit-equal."""
     x, w, b = _inputs(8, cin, cout, k, hw, cuda, n=8, seed=7)
+    pad = (k - 1) // 2
     with torch.no_grad():
-        y = ops.conv_igemm(x, w, torch.zeros_like(b), stride, False)
-        plus = ops.conv_igemm(x, w, b, stride, False)
-        relu = ops.conv_igemm(x, w, b, stride, True)
-        again = ops.conv_igemm(x, w, b, stride, True)
+        y = ops.conv_igemm(x, w, torch.zeros_like(b), stride, False, pad)
+        plus = ops.conv_igemm(x, w, b, stride, False, pad)
+        relu = ops.conv_igemm(x, w, b, stride, True, pad)
+        again = ops.conv_igemm(x, w, b, stride, True, pad)
         want = y + b.repeat(8)
     assert torch.equal(plus, want)
     assert torch.equal(relu, F.relu(want))
@@ -316,11 +320,12 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     the plain version on the CPU takes either."""
     x, w, b = _inputs(2, 16, 6, 3, 5, cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
-        ops.conv_igemm(x, w, b, 1)
+        ops.conv_igemm(x, w, b, 1, False, 1)
     x, w, b = _inputs(2, 16, 8, 3, 5, cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.conv_igemm(x.transpose(1, 2), w, b, 1)
-    assert ops.conv_igemm(x.cpu(), w[..., :6].cpu(), b[:6].cpu(), 1).shape \
+        ops.conv_igemm(x.transpose(1, 2), w, b, 1, False, 1)
+    assert ops.conv_igemm(x.cpu(), w[..., :6].cpu(), b[:6].cpu(), 1, False,
+                          1).shape \
         == (2, 5, 5, 12)
 
 

@@ -90,7 +90,7 @@ def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
     with use_tracer(tracer):
         ev._pass(s, s, None, 2)
     assert tracer.counters == {"pass.clip_launches": 0, "pass.conv_gemms": G,
-                               "pass.conv_igemms": 0}
+                               "pass.conv_igemms": 0, "pass.layer_norms": 0}
     # the process's own launch counts are put back after the test
     for name in ("act_clip_count_batched", "conv_igemm"):
         monkeypatch.setitem(kernels._LAUNCHED, name,
@@ -110,7 +110,7 @@ def test_clip_launches_count_the_batched_kernels_launches_in_a_pass(
         ev._pass(s, s, None, 2)
         ev._pass(s[:1], s[:1], None, 1)
     want = {"pass.clip_launches": 2 * L, "pass.conv_gemms": 2 * G,
-            "pass.conv_igemms": I}
+            "pass.conv_igemms": I, "pass.layer_norms": 0}
     assert tracer.counters == want
     ev._pass(s, s, None, 2)
     assert tracer.counters == want

@@ -199,5 +199,6 @@ def test_per_pass_counters_divide_by_the_window_s_passes():
                 "search.trials": 80}
     assert tool.per_pass(counters, 10) == {"clip_launches_per_pass": 21.0,
                                            "conv_gemms_per_pass": 0.0,
-                                           "conv_igemms_per_pass": 20.0}
+                                           "conv_igemms_per_pass": 20.0,
+                                           "layer_norms_per_pass": 0.0}
     assert tool.per_pass(counters, 0) == {}

@@ -70,14 +70,14 @@ def _routes(torch, cnn, kernels, cin, cout, k, stride, hw, act, dev):
     w = torch.randn((B, k, k, cin, cout), generator=gen,
                     device=dev) / (k * cin ** 0.5)
     b = torch.randn((cout,), generator=gen, device=dev) / 4
-    relu = act == "relu"
+    relu, pad = act == "relu", (k - 1) // 2
 
     def cudnn():
-        return cnn._act(kernels.ref.conv_igemm_ref(x, w, b, stride, relu),
+        return cnn._act(kernels.ref.conv_igemm_ref(x, w, b, stride, relu, pad),
                         "none" if relu else act)
 
     def igemm():
-        return cnn._act(kernels.ops.conv_igemm(x, w, b, stride, relu),
+        return cnn._act(kernels.ops.conv_igemm(x, w, b, stride, relu, pad),
                         "none" if relu else act)
     return {"cudnn": cudnn, "igemm": igemm}
 
@@ -150,7 +150,7 @@ def main(argv=None) -> int:
             for cin, cout, k, stride, hw, act, n in rows_of:
                 fns = _routes(torch, cnn, kernels, cin, cout, k, stride, hw,
                               act, dev)
-                ho = conv_igemm.out_size(hw, k, stride)
+                ho = conv_igemm.out_size(hw, k, stride, (k - 1) // 2)
                 M = N * ho * ho
                 flops = 2.0 * M * B * k * k * cin * cout
                 nbytes = 4.0 * B * (N * hw * hw * cin + k * k * cin * cout

@@ -20,8 +20,9 @@ with a ``repro_torch.obs.Tracer`` installed.
   ``tpe.kde_numpy``: which engine the TPE's KDE ran on;
   ``pass.clip_launches``: the batched clip kernel's launches;
   ``pass.conv_gemms``: the pass's convolutions that ran as one product;
-  ``pass.conv_igemms``: the implicit-GEMM kernel's launches; each also
-  per ``evaluate.pass`` span).
+  ``pass.conv_igemms``: the implicit-GEMM kernel's launches;
+  ``pass.layer_norms``: the pass's LayerNorms; each also per
+  ``evaluate.pass`` span).
 * Every device operation of the profiled search by name, ms and calls a
   round (``device_ops_ms_per_round``).
 * The set-up: the tracer is installed before ``harness.setup``, so the
@@ -178,7 +179,8 @@ def per_pass(counters: Dict[str, float], passes: int) -> Dict[str, float]:
     if not passes:
         return {}
     return {f"{name}_per_pass": counters.get(f"pass.{name}", 0) / passes
-            for name in ("clip_launches", "conv_gemms", "conv_igemms")}
+            for name in ("clip_launches", "conv_gemms", "conv_igemms",
+                         "layer_norms")}
 
 
 def profile_readings(prof, label_idle: Dict[str, float]
